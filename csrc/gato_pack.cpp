@@ -1,10 +1,10 @@
 // Native CSR -> block-dense packer for gato_tpu.
 //
-// TPU-native replacement for the reference's device-side format conversion
-// (csr_to_custom_G / csr_to_custom_C, /root/reference/src/gato_schur.cuh:675-756):
-// on TPU the conversion belongs on the host (the accelerator consumes dense
-// block arrays), and a single-pass C++ walk beats the multi-pass vectorized
-// NumPy fallback on large problems.  Semantics mirror gato_tpu/formats.py
+// Host replacement for the reference's device-side format conversion
+// (csr_to_custom_G / csr_to_custom_C, gato_schur.cuh:675-756): the
+// conversion belongs on the host (the solver consumes dense block arrays),
+// and a single-pass C++ walk beats the multi-pass vectorized NumPy fallback
+// on large problems.  Semantics mirror gato_tpu/formats.py
 // exactly, including the strict sparsity-pattern validation (the reference
 // silently corrupts adjacent memory on out-of-pattern entries; here they are
 // hard errors).

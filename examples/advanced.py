@@ -1,8 +1,10 @@
-"""Round-2 capabilities tour: polynomial preconditioning, long-horizon
-streaming, exact direct solves, fused MPC chains, and multi-chip batches.
+"""Capabilities tour: polynomial preconditioning, long horizons, exact
+direct solves, MPC chains and farms, packed serving, differentiable batches,
+and multi-device batches.
 
-Runs anywhere (Pallas kernels interpret off-TPU; the multi-chip section uses
-however many devices exist).  On a real TPU the fused paths are the defaults.
+Runs anywhere: on a CUDA GPU dispatch picks the measured-fastest backend
+(gato_tpu.dispatch), elsewhere the XLA path runs; the multi-device section uses
+however many devices exist.
 
 Run:  python examples/advanced.py
 """
@@ -28,25 +30,20 @@ for d in (1, 2, 3):
                                             precond_poly_degree=d))
     print(f"poly degree {d}: {int(res.iters)} PCG iterations")
 
-# --- horizons past VMEM residency -------------------------------------------
-# K=1024 at IIWA width exceeds the fused kernel's VMEM budget; the solver
-# automatically switches to the long-horizon whole-solve tier
-# (kernels/longk.py): lane-packed chunked condensation, then the whole PCG
-# loop in one kernel (operators DMA'd once into VMEM while they fit;
-# re-streamed per iteration beyond ~K=2000), then packed recovery — the same
-# decision the reference's check_sms makes between its resident and strided
-# CUDA kernels, one tier richer.
+# --- long horizons -----------------------------------------------------------
+# Dispatch picks the backend by horizon: the Triton PCG kernel streams its
+# operators per iteration from one program, so long horizons run XLA's
+# batched while loop instead (the measured crossover, PERF.md).
 long_spec = ProblemSpec(14, 7, 1024)
 res = solve(long_spec, random_blocks(long_spec, seed=1),
             SolverOptions(rho=1e-2, exit_tol=1e-6, max_iters=300))
-print(f"K=1024 (long-horizon kernel tier): {int(res.iters)} iterations, "
+print(f"K=1024: {int(res.iters)} iterations, "
       f"converged={bool(res.converged)}")
 
 # --- exact direct solve ------------------------------------------------------
-# On TPU the whole solve (condense + block cyclic reduction + recovery) runs
-# fused in one kernel (kernels/direct_fused.py) and BEATS the iterative path
-# (0.0164 vs 0.0181 ms on IIWA, v5e); no tolerance, no iterations — also the
-# robust option when PCG stalls.  Off-TPU: block CR / Thomas in XLA.
+# Condense + block cyclic reduction (or the Thomas scan, as dispatch picks) +
+# recovery: no tolerance, no iterations — also the robust option when PCG
+# stalls.
 res = solve(iiwa, blocks, SolverOptions(rho=1e-3, method="direct"))
 print(f"direct: iters={int(res.iters)} residual^2={float(res.eta):.2e}")
 
@@ -62,9 +59,9 @@ print(f"MPC chain: first {iters[0]} iters, warm-started rest "
       f"{float(np.mean(iters[1:])):.1f} mean")
 
 # --- MPC FARM: B warm-started streams in lockstep ----------------------------
-# Leading (T, B) axes; every step is ONE lane-packed kernel call advancing
-# all streams with their own warm-start carries (~4.8 us/solve at B=16 on
-# v5e — the serving deployment for fleets of controllers).
+# Leading (T, B) axes; every step is ONE batched solve advancing all streams
+# with their own warm-start carries — the serving deployment for fleets of
+# controllers.
 from gato_tpu import solve_sequence_batched
 
 Bf = 4
@@ -79,10 +76,10 @@ it = np.asarray(out.iters)
 print(f"MPC farm ({Bf} streams): first-step mean {float(it[0].mean()):.1f} "
       f"iters, warm-started rest {float(it[1:].mean()):.1f} mean")
 
-# --- packed serving: relayout once, kernel-dispatch cost per solve -----------
-# pack() stores the blocks in the fused kernel's lane layout; solve_packed
-# skips the per-call surface relayout, update_vectors refreshes only the rhs
-# (frozen linearization), and the warm-start carry stays packed across calls.
+# --- packed serving: stage once, solve repeatedly ----------------------------
+# pack() checks and stages the blocks on the device once; solve_packed skips
+# the per-call casts and checks, update_vectors refreshes only the rhs
+# (frozen linearization), and the warm-start carry stays on the device.
 from gato_tpu import pack, solve_packed, update_vectors
 
 opts = SolverOptions(rho=1e-3, exit_tol=1e-6, max_iters=200)
@@ -92,11 +89,11 @@ packed = update_vectors(packed, np.asarray(blocks.q) * 1.01,
                         blocks.r, blocks.c)
 warm = solve_packed(packed, opts, lam0=first.lam_packed)
 print(f"packed serving: cold {int(first.unpack().iters)} iters, rhs-refresh "
-      f"warm {int(warm.unpack().iters)} iters (carry never left kernel layout)")
+      f"warm {int(warm.unpack().iters)} iters")
 
-# --- differentiable batched solves at kernel speed ---------------------------
-# kkt_solve_batched: implicit-function-theorem gradients with the forward AND
-# adjoint exact solves dispatched to the fused cyclic-reduction kernel.
+# --- differentiable batched solves ------------------------------------------
+# kkt_solve_batched: implicit-function-theorem gradients, the forward AND
+# adjoint exact solves batched over the leading axis.
 from gato_tpu import kkt_solve_batched
 
 Bd = 3
@@ -109,7 +106,7 @@ gQ = jax.grad(
 print(f"differentiable batch: dloss/dQ shape {gQ.shape}, "
       f"finite={bool(np.all(np.isfinite(np.asarray(gQ))))}")
 
-# --- multi-chip: batch sharded over a mesh, fused kernel per device ----------
+# --- multi-device: batch sharded over a mesh, batched solve per device -------
 from jax.sharding import Mesh
 from gato_tpu.parallel.sharded import solve_batched_dp
 

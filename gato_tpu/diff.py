@@ -1,7 +1,7 @@
 """Differentiable KKT solves via the implicit function theorem.
 
-No reference equivalent — this is capability the TPU/JAX substrate gives that
-a CUDA kernel library cannot: exact gradients of the solution (lambda, dz)
+No reference equivalent — this is capability the JAX substrate gives that a
+CUDA kernel library does not: exact gradients of the solution (lambda, dz)
 with respect to every problem datum (Q, R, A, B, q, r, c, rho), with O(1)
 memory (one extra KKT solve for the backward pass, instead of differentiating
 through solver iterations).
@@ -108,48 +108,13 @@ kkt_solve.defvjp(_fwd, _bwd)
 
 
 # ---------------------------------------------------------------------------
-# Batched differentiable solves at kernel speed.
-
-
-def _use_fused_direct(K: int, s: int, c: int, dtype) -> bool:
-    """True when the batched exact solves should run the fused
-    cyclic-reduction kernel — exactly when the solver's own dispatch ladder
-    (solver.default_pcg_backend: TPU, float32, CR kernel importable and
-    within its VMEM budget) would pick it for method='direct'; one
-    predicate, not a second copy to keep in sync.  The implicit-function-
-    theorem VJP never differentiates THROUGH the solver — it only needs the
-    solution plus one adjoint solve of the same system — so an opaque
-    Pallas forward costs nothing in gradient machinery."""
-    from .problem import ProblemSpec
-    from .solver import default_pcg_backend
-
-    backend = default_pcg_backend(
-        batched=True, spec=ProblemSpec(s, c, K), method="direct", dtype=dtype)
-    return backend == "fused"
+# Batched differentiable solves.
 
 
 def _solve_kkt_batched(Q, R, A, B, q, r, c, rho):
-    """Exact batched saddle solve (leading batch axis on every array).
-
-    On TPU/f32 within VMEM budget this is ONE fused cyclic-reduction kernel
-    call for the whole batch (~12x the XLA direct path at 256x IIWA,
-    BENCH_DETAIL iiwa_batch_256_direct_fused vs iiwa_batch_256_direct);
-    elsewhere the vmapped condense -> block-direct -> recover oracle path."""
-    K, s = Q.shape[1], Q.shape[2]
-    cdim = R.shape[-1]
-    if _use_fused_direct(K, s, cdim, Q.dtype):
-        # Same batch-width kernel pick as solver._solve_batched_core —
-        # wide batches (B >= 16 measured) run the batch-in-lanes Thomas
-        # kernel for BOTH the forward and the adjoint solve.
-        from .kernels import direct_fused, thomas_batch
-
-        if thomas_batch.should_dispatch(Q.shape[0], K, s, cdim):
-            res, dz_x, dz_u = thomas_batch.solve_direct_thomas_batched(
-                Q, R, A, B, q, r, c, rho=rho)
-        else:
-            res, dz_x, dz_u = direct_fused.solve_direct_fused_batched(
-                Q, R, A, B, q, r, c, rho=rho)
-        return res.lam, dz_x, dz_u
+    """Exact batched saddle solve (leading batch axis on every array): the
+    vmapped condense -> block-direct -> recover path, with the direct
+    algorithm chosen for the whole batch's width (btd_solve_auto)."""
     sys = jax.vmap(
         lambda *xs: assemble.condense(*xs, rho, None)
     )(Q, R, A, B, q, r, c)
@@ -164,12 +129,12 @@ def kkt_solve_batched(Q, R, A, B, q, r, c, rho):
     """Differentiable exact KKT solve over a leading batch axis:
     (B,K,s,s), ... -> (lam (B,K,s), dz_x (B,K,s), dz_u (B,K-1,c)).
 
-    Prefer this over ``jax.vmap(kkt_solve)`` on TPU: the explicit batch axis
-    dispatches the forward AND adjoint solves to the fused cyclic-reduction
-    kernel (one lane-packed Pallas call per direction), where a vmap of the
-    single-problem path stays on the XLA direct route.  Gradients are the
-    same implicit-function-theorem VJP (exact to f32); ``rho`` is one scalar
-    shared by the batch, and its gradient sums over the batch."""
+    Prefer this over ``jax.vmap(kkt_solve)``: the explicit batch axis lets
+    the direct-algorithm choice see the whole batch width for the forward
+    AND adjoint solves, where a vmap of the single-problem path sees one
+    problem.  Gradients are the same implicit-function-theorem VJP (exact
+    to f32); ``rho`` is one scalar shared by the batch, and its gradient
+    sums over the batch."""
     return _solve_kkt_batched(Q, R, A, B, q, r, c, rho)
 
 

@@ -1,11 +1,11 @@
 """Direct block-tridiagonal solver: block Thomas elimination via lax.scan.
 
 No reference equivalent — the CUDA reference uses PCG because a sequential
-elimination is a poor fit for a GPU grid of blocks.  On TPU the trade is
-different: a ``lax.scan`` over the knot axis runs on-chip with each step a
-batched handful of (s x s) ops, so the whole factor+solve is one short
-sequential sweep with *batch-parallel* steps.  For batched workloads this
-beats iterative PCG outright (no iteration count, exact answer), and for
+elimination is a poor fit for a GPU grid of blocks.  Under XLA the trade is
+different: a ``lax.scan`` over the knot axis runs each step as a batched
+handful of (s x s) ops, so the whole factor+solve is one short sequential
+sweep with *batch-parallel* steps.  For batched workloads this can beat
+iterative PCG outright (no iteration count, exact answer), and for
 ill-conditioned systems it is the robust fallback when PCG stalls.
 
 Algorithm (block Thomas / block LU without inter-block pivoting) on
@@ -38,7 +38,7 @@ _PRECISION = jax.lax.Precision.HIGHEST
 # Residual acceptance for ``method='direct'``: the solver is exact up to
 # floating point, so ``converged`` is DERIVED from the computed residual
 # rather than asserted — sqrt(eta) <= RTOL * sqrt(1 + ||gamma||^2).  Healthy
-# f32 solves land at ~1e-6 relative residual (measured, v5e property sweep);
+# f32 solves land at ~1e-6 relative residual (CPU property sweep);
 # 1e-3 leaves two orders of headroom for ill-conditioned-but-solvable systems
 # while a singular/garbage input (residual O(1) or NaN) fails it.  The
 # reference has no analog (its only failure signal is process exit,
@@ -158,11 +158,9 @@ def btd_solve_cr(S: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     Thomas is a length-K sequential sweep whose steps are tiny, while cyclic
     reduction eliminates all odd rows at once per level — ceil(log2 K) levels
     of fully batched (m, s, s) inversions and products.  CR trades ~2x the
-    flops of Thomas for log-depth, so it wins when the computation is
-    depth-bound (small batches: measured v5e, IIWA single solve 0.89 Thomas
-    -> 0.17 ms CR) and loses once Thomas's batched steps saturate the VPU
-    (256-batch: 83 vs 122 us/solve) — :func:`btd_solve_auto` picks by step
-    width.  Same no-pivoting SPD justification; CR's reduced systems are
+    flops of Thomas for log-depth, so it wins where the computation is
+    depth-bound — on a GPU, where every scan step of Thomas is a launch of
+    its own — :func:`btd_solve_auto` picks per device.  Same no-pivoting SPD justification; CR's reduced systems are
     Schur complements of SPD systems, hence SPD themselves.
 
     Per level, with odd rows j (D_o, L_o, U_o, b_o) and even rows i:
@@ -239,30 +237,12 @@ def btd_solve_cr(S: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 
 def btd_solve_auto(S: jnp.ndarray, b: jnp.ndarray,
                    use_cr: "bool | None" = None) -> jnp.ndarray:
-    """Dispatched direct solve: cyclic reduction when the problem is
-    DEPTH-bound, block Thomas when it is THROUGHPUT-bound (and always Thomas
-    off-TPU — the scan is cheap on CPU and is the numerics oracle).
+    """Dispatched direct solve: cyclic reduction or block Thomas, as
+    dispatch.choose_backend picks for this device (``use_cr`` forces the
+    choice).  Both are exact; only speed is at stake."""
+    if use_cr is None:
+        from .dispatch import choose_backend
 
-    Thomas's per-step width is batch*s^2 elements; once that saturates the
-    VPU, the sequential depth stops dominating and CR's ~2x flop count makes
-    it a net loss.  Measured on v5e, IIWA width: single solve 0.89 (Thomas)
-    vs 0.17 ms (CR), but 256-batch 83 vs 122 us/solve the other way — the
-    crossover is a few thousand elements of step width.
-
-    CAVEAT: the width heuristic reads ``b``'s trace-time shape, which does
-    NOT see axes mapped away by a user-side ``jax.vmap`` — a vmapped wide
-    batch would look like many single solves and pick CR in Thomas's regime.
-    Both are exact, so only speed is at stake; prefer the library's batched
-    entry points (solve_batched, lax.map) for wide batches, or force the
-    choice with ``use_cr``."""
-    if use_cr is not None:
-        return btd_solve_cr(S, b) if use_cr else btd_solve(S, b)
-    if jax.default_backend() != "tpu":
-        return btd_solve(S, b)
-    batch = 1
-    for d in b.shape[:-2]:
-        batch *= int(d)
-    s = b.shape[-1]
-    if batch * s * s <= 4096:
-        return btd_solve_cr(S, b)
-    return btd_solve(S, b)
+        use_cr = choose_backend("direct", None, dtype=b.dtype,
+                                K=b.shape[-2]) == "cr"
+    return btd_solve_cr(S, b) if use_cr else btd_solve(S, b)

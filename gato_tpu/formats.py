@@ -3,7 +3,7 @@
 The reference converts CSR G and C into a packed per-knot dense layout on the GPU
 (``csr_to_custom_G`` / ``csr_to_custom_C``, gato_schur.cuh:675-756).  Here the
 packing runs on the host in vectorized NumPy (an optional C++ fast path lives in
-``gato_tpu.native``), producing the struct-of-blocks layout the TPU solver
+``gato_tpu.native``), producing the struct-of-blocks layout the solver
 consumes:
 
   * ``Q``: (K, s, s)    per-knot state cost Hessians
@@ -57,11 +57,10 @@ class KKTBlocks(NamedTuple):
 def check_block_shapes(spec: ProblemSpec, blocks: KKTBlocks,
                        lead: tuple = ()) -> None:
     """Validate EVERY KKTBlocks field against ``spec`` (plus optional leading
-    batch/time axes).  The lane-packing kernel paths zero-pad whatever they
-    are given (kernels/fused_solve._pack_vec), so a malformed field — e.g. a
+    batch/time axes).  The kernel path zero-pads whatever it is given
+    (kernels/pcg_triton.py pads to its tiles), so a malformed field — e.g. a
     (K-1)-row ``c``, an easy slip since ``r`` IS (K-1, c) — must be rejected
-    at the API surface, not packed into a silently-wrong system (the pure-XLA
-    path would raise a shape error; the kernel paths would not)."""
+    at the API surface, not padded into a silently-wrong system."""
     K, s, c = spec.knot_points, spec.state_size, spec.control_size
     lead = tuple(lead)
     expect = {

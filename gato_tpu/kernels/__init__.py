@@ -1,6 +1,6 @@
-"""Fused Pallas TPU kernels — the performance tier.
+"""Hand-written Pallas kernels.
 
-Numerics are identical to the pure-JAX path in pcg.py / assemble.py (which is
-also the CPU fallback and the test oracle); every kernel here has an
-``interpret=True`` CPU test.
+Numerics match the plain XLA path in pcg.py (which is also the portable
+fallback and the test oracle); every kernel here has an ``interpret=True``
+CPU test, and dispatch.choose_backend decides where each one runs.
 """

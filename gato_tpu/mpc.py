@@ -3,8 +3,7 @@
 The reference's intended MPC usage is a host loop: solve, copy lambda out,
 feed it back as input_lambda with warm_start=True (gpu_library.cu:161-179 —
 though its kernels then ignore the warm start, gato_pcg.cuh:296-304).  Every
-hop through the host costs a dispatch round trip — which on a remote-attached
-TPU dwarfs the ~0.3 ms solve itself.
+hop through the host costs a dispatch and a device-to-host copy.
 
 ``solve_sequence`` runs the whole chain as a single ``lax.scan``: T solves,
 each warm-started from the previous multipliers, one dispatch total.  Each
@@ -12,11 +11,10 @@ step carries its own KKT data (leading T axis — in an SQP/MPC loop the
 linearization changes every step) and optionally its own rho (the
 "rho updates" pattern from the reference's MPC story).
 
-TPU notes: the scan body is the same condense -> PCG -> recover program as
-solver._solve_core; XLA hoists the loop-invariant parts and keeps lambda
-on-chip between steps.  Warm starting typically cuts PCG iterations by 2-5x
-for slowly-varying problems, and unlike the host loop there is no transport
-in the chain at all.
+The scan body is the same condense -> PCG -> recover program as
+solver._solve_batched_core; lambda stays on the device between steps.  Warm
+starting typically cuts PCG iterations by 2-5x for slowly-varying problems,
+and unlike the host loop no step waits on the host.
 """
 
 from __future__ import annotations
@@ -27,47 +25,36 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 
-from . import assemble, pcg as pcg_mod, recover
+from . import assemble, recover
 from .formats import KKTBlocks
 from .problem import Preconditioner, ProblemSpec, SolverOptions
-from .solver import (SolveResult, _cached_const, _resolve_backend,
-                     _solve_batched_core, default_pcg_backend,
-                     _reject_non_f32_kernels)
+from .solver import (SolveResult, _cached_const, _pcg_batched,
+                     _solve_batched_core, resolve_backend)
 
 
 def _fold_rhos(Q, R, rhos):
     """Fold per-step regularizers into the Q/R diagonals: rho only ever
     enters the system as ``G + rho*I`` (gato_schur.cuh:697,700 — bitwise
-    the same addition the kernels' scalar-rho path performs at load), so
-    folding up front lets one kernel call serve steps with differing
-    regularizers.  Shared by the single-chip exact farm below and the
-    dp-sharded one (parallel.sharded._solve_sequence_batched_dp_direct_core)
-    so the fold cannot silently diverge between them."""
+    the same addition condense performs), so folding up front lets one
+    batched solve serve steps with differing regularizers.  Shared by the
+    single-device exact farm below and the dp-sharded one
+    (parallel.sharded._solve_sequence_batched_dp_direct_core) so the fold
+    cannot silently diverge between them."""
     rr = rhos.reshape((rhos.shape[0],) + (1,) * (Q.ndim - 1))
     Qr = Q + rr * jnp.eye(Q.shape[-1], dtype=Q.dtype)
     Rr = R + rr * jnp.eye(R.shape[-1], dtype=R.dtype)
     return Qr, Rr
 
 
-@functools.partial(
-    jax.jit, static_argnames=("preconditioner", "pcg_backend", "poly_degree")
-)
-def _solve_sequence_batched_direct_core(
-    Q, R, A, B, q, r, c, rhos,
-    preconditioner: Preconditioner,
-    pcg_backend: str,
-    poly_degree: int = 1,
-):
+@functools.partial(jax.jit, static_argnames=("backend",))
+def _solve_sequence_batched_direct_core(Q, R, A, B, q, r, c, rhos,
+                                        backend: str):
     """EXACT sequence farm: a (T, B) grid of independent direct solves run
     as ONE batch of T*B problems — no warm-start carry exists for an exact
     solve, so the T axis has no sequential dependency and folds straight
-    into the batch axis (full lane occupancy in the batch-in-lanes Thomas
-    tier, every step of every stream in flight at once — where the PCG farm
-    above must scan T sequentially to carry its warm start).  The per-step
-    ``rhos`` are folded into the Q/R diagonals up front (rho only ever
-    enters as ``G + rho*I``, gato_schur.cuh:697,700 — bitwise the same
-    addition the kernels' scalar-rho path performs at load), so one kernel
-    call serves steps with differing regularizers."""
+    into the batch axis (where the PCG farm below must scan T sequentially
+    to carry its warm start).  The per-step ``rhos`` are folded into the
+    Q/R diagonals up front (:func:`_fold_rhos`)."""
     T, Bn, K, s = Q.shape[:4]
     Qr, Rr = _fold_rhos(Q, R, rhos)
 
@@ -79,8 +66,8 @@ def _solve_sequence_batched_direct_core(
         flat(Qr), flat(Rr), flat(A), flat(B), flat(q), flat(r), flat(c),
         jnp.zeros((T * Bn, K, s), Q.dtype), zero, zero,
         jnp.zeros((), jnp.int32),
-        preconditioner=preconditioner, pcg_backend=pcg_backend,
-        method="direct", poly_degree=poly_degree,
+        preconditioner=Preconditioner.SYMMETRIC_STAIR, backend=backend,
+        method="direct",
     )
 
     def unflat(a):
@@ -91,71 +78,22 @@ def _solve_sequence_batched_direct_core(
 
 @functools.partial(
     jax.jit,
-    static_argnames=("preconditioner", "pcg_backend", "poly_degree"),
+    static_argnames=("preconditioner", "backend", "poly_degree"),
 )
 def _solve_sequence_batched_core(
     Q, R, A, B, q, r, c,        # leading (T, Bn) axes on every array
     lam0, rhos, exit_tol, max_iters,
     preconditioner: Preconditioner,
-    pcg_backend: str,
+    backend: str,
     poly_degree: int = 1,
 ):
-    if pcg_backend == "fused":
-        from .kernels import fused_solve
-
-        out = fused_solve.solve_fused_sequence_batched(
-            Q, R, A, B, q, r, c, lam0, rhos, exit_tol, max_iters,
-            poly_degree=poly_degree, preconditioner=preconditioner.value,
-        )
-        lam, dz_x, dz_u, iters, conv, eta = out
-        return SolveResult(lam=lam, dz_x=dz_x, dz_u=dz_u, iters=iters,
-                           converged=conv, eta=eta)
-
-    if pcg_backend == "pallas":
-        from .kernels import longk
-
-        if longk.should_dispatch(q.shape[2], q.shape[3], r.shape[3]):
-            # Long-horizon whole-solve tier, warm-started like every other
-            # backend — with the relayouts HOISTED out of the sequential
-            # chain (pack all T steps before the scan, carry lambda packed),
-            # exactly as the fused branch above does; a per-step
-            # solve_longk_batched would repack (B, K>=1024, s, s) blocks on
-            # every step of the scan.
-            out = longk.solve_longk_sequence_batched(
-                Q, R, A, B, q, r, c, lam0, rhos, exit_tol, max_iters,
-                poly_degree=poly_degree, preconditioner=preconditioner.value,
-            )
-            lam, dz_x, dz_u, iters, conv, eta = out
-            return SolveResult(lam=lam, dz_x=dz_x, dz_u=dz_u, iters=iters,
-                               converged=conv, eta=eta)
-
     def step(lam_carry, xs):
         Qt, Rt, At, Bt, qt, rt, ct, rho_t = xs
         sys = jax.vmap(
             lambda *a: assemble.condense(*a, rho_t, preconditioner)
         )(Qt, Rt, At, Bt, qt, rt, ct)
-        if pcg_backend == "pallas":
-            from .kernels import pcg_pallas, pcg_streamed
-
-            if pcg_pallas.fits_vmem(qt.shape[1], qt.shape[2]):
-                res = pcg_pallas.pcg_fused_batched(
-                    sys.S, sys.Pinv, sys.gamma, lam_carry,
-                    exit_tol=exit_tol, max_iters=max_iters,
-                    poly_degree=poly_degree,
-                )
-            else:
-                res = pcg_streamed.pcg_streamed_batched(
-                    sys.S, sys.Pinv, sys.gamma, lam_carry,
-                    exit_tol=exit_tol, max_iters=max_iters,
-                    poly_degree=poly_degree,
-                )
-        else:
-            res = jax.vmap(
-                lambda S, P, g0, l: pcg_mod.pcg(
-                    S, P, g0, l, exit_tol=exit_tol, max_iters=max_iters,
-                    poly_degree=poly_degree,
-                )
-            )(sys.S, sys.Pinv, sys.gamma, lam_carry)
+        res = _pcg_batched(sys.S, sys.Pinv, sys.gamma, lam_carry, exit_tol,
+                           max_iters, backend, poly_degree)
         dz_x, dz_u = jax.vmap(recover.recover_dz)(
             sys.Qinv, sys.Rinv, At, Bt, qt, rt, res.lam
         )
@@ -166,24 +104,6 @@ def _solve_sequence_batched_core(
 
     _, outs = jax.lax.scan(step, lam0, (Q, R, A, B, q, r, c, rhos))
     return outs
-
-
-def _resolve_sequence_backend(pcg_backend, options, spec, caller: str) -> str:
-    """Backend choice for the warm-started sequence entry points — one
-    definition of the (auto | jax | pallas | fused) ladder both share.
-    Portable default is the lax.while_loop PCG; on TPU the auto default is
-    the per-step fused whole-solve kernel (warm-started from the carry).
-    Explicit requests that can't be honored raise — no silent degradation."""
-    if pcg_backend is None:
-        return default_pcg_backend(batched=True, spec=spec,
-                                   dtype=options.dtype)
-    if pcg_backend in ("jax", "pallas", "fused"):
-        _reject_non_f32_kernels(pcg_backend, options.dtype)
-        return pcg_backend
-    raise ValueError(
-        f"{caller} supports pcg_backend in (None, 'jax', 'pallas', "
-        f"'fused'); got {pcg_backend!r}"
-    )
 
 
 def solve_sequence_batched(
@@ -199,11 +119,11 @@ def solve_sequence_batched(
     ``blocks`` carries leading (T, B) axes on every array: B independent
     MPC/SQP problem streams, each of T dependent steps.  Every stream
     carries its own warm start across the sequence (``result.lam[t, b]``
-    warm-starts step t+1 of stream b), and on TPU every step is ONE fused
-    lane-packed kernel call advancing all B streams at once — the serving
-    deployment for fleets of controllers.  No reference equivalent (the
-    CUDA solver handles one problem per call and its warm start is
-    inoperative, gato_pcg.cuh:296-304).
+    warm-starts step t+1 of stream b), and every step is one batched solve
+    advancing all B streams at once — the serving deployment for fleets of
+    controllers.  No reference equivalent (the CUDA solver handles one
+    problem per call and its warm start is inoperative,
+    gato_pcg.cuh:296-304).
 
     Args mirror :func:`solve_sequence`: ``rhos`` is per-step (T,),
     ``lam0`` is (B, K, s) (zeros by default).  Returns a SolveResult with
@@ -211,11 +131,9 @@ def solve_sequence_batched(
 
     ``method='direct'`` runs the farm EXACTLY: the T*B solves are
     independent (no warm-start carry exists for an exact solve), so the
-    whole grid folds into ONE batched kernel call — the batch-in-lanes
-    Thomas tier from T*B >= its width crossover, at ~0.9 us/solve on v5e
-    vs ~2.3 for this warm-started PCG farm at B=256 — with per-step
-    ``rhos`` honored by diagonal folding; ``lam0`` is ignored (exact
-    solves take no initial guess).
+    whole grid folds into ONE batched solve, with per-step ``rhos`` honored
+    by diagonal folding; ``lam0`` is ignored (exact solves take no initial
+    guess).
     """
     dtype = jnp.dtype(options.dtype)
     b = KKTBlocks(*(jnp.asarray(a, dtype=dtype) for a in blocks))
@@ -226,7 +144,7 @@ def solve_sequence_batched(
     T, Bn, K, s = b.Q.shape[0], b.Q.shape[1], b.Q.shape[2], b.Q.shape[3]
     from .formats import check_block_shapes
 
-    check_block_shapes(spec, b, lead=(T, Bn))  # every field — kernels zero-pad
+    check_block_shapes(spec, b, lead=(T, Bn))
 
     if lam0 is None:
         lam0 = _cached_const(0, dtype, (Bn, K, s))
@@ -238,18 +156,12 @@ def solve_sequence_batched(
         rhos = jnp.asarray(rhos, dtype=dtype).reshape(T)
 
     if options.method == "direct":
-        # EXACT farm: T*B independent solves in one batched kernel call —
-        # see _solve_sequence_batched_direct_core.  Backend validation is
-        # solve_batched's (batch = T*B drives the Thomas-width pick).
-        backend = _resolve_backend(pcg_backend, options, batched=True,
-                                   spec=spec, batch=T * Bn)
+        # EXACT farm: T*B independent solves in one batched solve — see
+        # _solve_sequence_batched_direct_core.
+        backend = resolve_backend(pcg_backend, options, spec)
         return _solve_sequence_batched_direct_core(
-            b.Q, b.R, b.A, b.B, b.q, b.r, b.c, rhos,
-            preconditioner=options.preconditioner, pcg_backend=backend,
-            poly_degree=options.precond_poly_degree,
-        )
-    backend = _resolve_sequence_backend(pcg_backend, options, spec,
-                                        "solve_sequence_batched")
+            b.Q, b.R, b.A, b.B, b.q, b.r, b.c, rhos, backend=backend)
+    backend = resolve_backend(pcg_backend, options, spec)
     return _solve_sequence_batched_core(
         b.Q, b.R, b.A, b.B, b.q, b.r, b.c,
         lam0, rhos,
@@ -283,9 +195,7 @@ def solve_sequence(
 
     ``method='direct'`` solves the sequence exactly: with no warm-start
     carry the T steps are independent, so they all solve IN PARALLEL as one
-    batch of T problems (the T axis becomes the kernel batch axis — at
-    T >= the Thomas-width crossover that is the batch-in-lanes tier);
-    ``lam0`` is ignored.
+    batch of T problems; ``lam0`` is ignored.
     """
     dtype = jnp.dtype(options.dtype)
     b = KKTBlocks(*(jnp.asarray(a, dtype=dtype) for a in blocks))
@@ -296,7 +206,7 @@ def solve_sequence(
     T, K, s = b.Q.shape[0], b.Q.shape[1], b.Q.shape[2]
     from .formats import check_block_shapes
 
-    check_block_shapes(spec, b, lead=(T,))  # every field — kernels zero-pad
+    check_block_shapes(spec, b, lead=(T,))
 
     if lam0 is None:
         lam0 = _cached_const(0, dtype, (K, s))
@@ -309,26 +219,19 @@ def solve_sequence(
 
     if options.method == "direct":
         # An exact sequence has no warm-start carry: the T solves are
-        # independent, so the T axis IS the batch axis — all steps solve in
-        # parallel through solve_batched's kernel pick (Thomas tier from
-        # T >= its width crossover).
-        backend = _resolve_backend(pcg_backend, options, batched=True,
-                                   spec=spec, batch=T)
+        # independent, so the T axis IS the batch axis.
+        backend = resolve_backend(pcg_backend, options, spec)
         res = _solve_sequence_batched_direct_core(
             b.Q[:, None], b.R[:, None], b.A[:, None], b.B[:, None],
-            b.q[:, None], b.r[:, None], b.c[:, None], rhos,
-            preconditioner=options.preconditioner, pcg_backend=backend,
-            poly_degree=options.precond_poly_degree,
-        )
+            b.q[:, None], b.r[:, None], b.c[:, None], rhos, backend=backend)
         return SolveResult(
             lam=res.lam[:, 0], dz_x=res.dz_x[:, 0], dz_u=res.dz_u[:, 0],
             iters=res.iters[:, 0], converged=res.converged[:, 0],
             eta=res.eta[:, 0],
         )
-    backend = _resolve_sequence_backend(pcg_backend, options, spec,
-                                        "solve_sequence")
+    backend = resolve_backend(pcg_backend, options, spec)
     # The single sequence is the B=1 case of the batched core (one code path
-    # to maintain; the fused kernel wrapper makes the same delegation).
+    # to maintain).
     res = _solve_sequence_batched_core(
         b.Q[:, None], b.R[:, None], b.A[:, None], b.B[:, None],
         b.q[:, None], b.r[:, None], b.c[:, None],

@@ -1,47 +1,30 @@
-"""Packed-input serving API: pay the kernel-layout relayout once, not per call.
+"""Packed-input serving API: stage a problem on the device once, solve it
+many times.
 
-The fused whole-solve kernels consume inputs in the lane-packed column-stack
-layout (kernels/fused_solve.py module docstring: every per-knot matrix stored
-as a stack of its columns over knot lanes).  ``solve``/``solve_batched``
-relayout the public ``(B, K, s, s)`` blocks into that form on EVERY call —
-XLA transposes that are pure overhead when the same arrays are solved again
-(rho/tolerance sweeps, repeated serving of a fixed linearization) or when
-only the small right-hand-side vectors change between calls (MPC tracking
-with frozen dynamics).  bench.py's ``bench_fused_split`` measures exactly
-this split (``surface_overhead_ms`` vs ``kernel_only_ms``) on device.
+``solve``/``solve_batched`` accept host or device arrays of any float type
+and, on every call, cast them, check every block shape and pick a backend.
+A serving loop that solves the same arrays again (rho/tolerance sweeps,
+repeated serving of a fixed linearization) or changes only the small
+right-hand-side vectors (MPC tracking with frozen dynamics) pays that per
+call for nothing.  This module makes the staged problem a reusable value:
 
-This module makes the packed form a first-class, reusable value:
-
-    packed = pack(spec, blocks)                    # relayout once
-    res = solve_packed(packed, options)            # kernel-dispatch only
-    packed = update_vectors(packed, q, r, c)       # repack ONLY the rhs
+    packed = pack(spec, blocks)                    # cast + check + stage once
+    res = solve_packed(packed, options)            # one jitted solve
+    packed = update_vectors(packed, q, r, c)       # restage ONLY the rhs
     res = solve_packed(packed, options, lam0=res.lam_packed)   # warm start
-                                                   # carried packed
+                                                   # carried on the device
 
-``solve_packed`` returns a :class:`PackedSolveResult` whose trajectory
-outputs stay in kernel layout; ``.unpack()`` converts to the public
+``solve_packed`` returns a :class:`PackedSolveResult` whose arrays keep the
+packed batch axis; ``.unpack()`` converts to the public
 :class:`~gato_tpu.solver.SolveResult` shapes, and ``.lam_packed`` feeds the
-next call's warm start with no unpack->repack on the serving path (the same
-hoisting the MPC farm applies inside its scan,
-fused_solve.solve_fused_sequence_batched — here exposed across host calls).
+next call's warm start without a host round trip.  Arrays are stored in the
+public block layout (formats.KKTBlocks) with a leading batch axis, in the
+dtype ``pack`` casts them to (float32 unless asked otherwise); a solve runs in
+that dtype, and ``options.dtype`` must name it.
 
 No reference equivalent: the CUDA solver re-runs its CSR->custom conversion
 per ``linsys_solve`` call and keeps inputs device-resident only inside the
-one-call testiters loop (/root/reference/gpu_library.cu:140-157).
-
-Scope: float32 kernel tiers — method='pcg' (VMEM-resident fused kernel,
-or the long-horizon whole-solve tier kernels/longk.py past the fused VMEM
-budget: the plan carries tier='longk' and solves through the same packed
-seam the MPC sequence path uses, longk._solve_longk_packed) and
-method='direct' (batch-width kernel pick like solve_batched: batch-in-lanes
-block-Thomas geometry at wide batches, tier='thomas' — overridable at
-pack(tier=...) — knots-in-lanes cyclic reduction below; past the CR packing
-budget the long-horizon one-kernel cyclic-reduction tier while
-fits_direct_xl holds, through longk._solve_direct_longk_packed).  Shapes no
-kernel tier owns
-(direct past direct-XL residency; PCG in the gap where only the
-split XLA-condense + resident-PCG path applies, or beyond the longk
-tiers) raise at :func:`pack` time — use the standard solve() API there.
+one-call testiters loop (gpu_library.cu:140-157).
 """
 
 from __future__ import annotations
@@ -53,80 +36,62 @@ from typing import NamedTuple, Optional
 import jax
 import jax.numpy as jnp
 
-from .formats import KKTBlocks
+from .formats import KKTBlocks, check_block_shapes
 from .problem import ProblemSpec, SolverOptions
-from .solver import SolveResult, _cached_const
-
-# The Pallas kernel modules are imported lazily inside the functions that
-# dispatch to them — the same contract as every other dispatch site
-# (solver.py, mpc.py): `import gato_tpu` must keep working (pure-XLA/f64
-# paths) in environments where Mosaic/Pallas cannot import.
+from .solver import SolveResult, _cached_const, _solve_batched_core
 
 
 class PackPlan(NamedTuple):
-    """Static description of a packed layout (hashable: jit-static metadata).
+    """Static description of a pack (hashable: jit-static metadata).
 
-    ``method`` records which kernel family the plan was sized for — the PCG
-    ('pcg') and cyclic-reduction ('direct') kernels hold different working
-    sets, so their VMEM budgets (and hence g/L packing) can differ; a packed
-    value is only valid for the kernel it was planned against.
     ``batched`` records whether the caller supplied a leading batch axis
-    (``unpack`` restores the caller's shape convention).
-    ``tier`` is 'fused' (VMEM-resident whole-solve kernels) or 'longk'
-    (the long-horizon whole-solve tier, kernels/longk.py) — longk packs
-    one problem per group (g=1, L=Kp) and re-derives its chunking/tier
-    statics from (K, s, c) at dispatch (longk._plan_dispatch)."""
+    (``unpack`` restores the caller's shape convention); ``batch`` is the
+    number of problems packed (1 when not batched); ``dtype`` is the name
+    of the staged arrays' dtype."""
 
-    method: str      # 'pcg' | 'direct'
-    batched: bool    # caller passed (B, K, ...) rather than (K, ...)
-    batch: int       # number of problems packed (1 when not batched)
+    batched: bool
+    batch: int
     K: int
     s: int
     c: int
-    K_sub: int
-    g: int
-    L: int
-    n_groups: int
-    sp: int
-    tier: str = "fused"
+    dtype: str = "float32"
 
 
-@functools.partial(
-    jax.tree_util.register_dataclass,
-    data_fields=["Qb", "Rb", "Ab", "Bb", "qb", "rb", "cb"],
-    meta_fields=["plan"],
-)
+_DATA = ["Q", "R", "A", "B", "q", "r", "c"]
+
+
+@functools.partial(jax.tree_util.register_dataclass, data_fields=_DATA,
+                   meta_fields=["plan"])
 @dataclasses.dataclass(frozen=True)
 class PackedKKT:
-    """KKT blocks in the fused kernels' lane-packed layout.
+    """KKT blocks staged on the device: formats.KKTBlocks fields with a
+    leading batch axis, in ``plan.dtype``.  A pytree whose structure carries the static
+    :class:`PackPlan`."""
 
-    Matrices are ``(n_groups, n_cols, sp, L)``, vectors ``(n_groups, sp, L)``
-    (fused_solve._pack_mat/_pack_vec).  A pytree whose structure carries the
-    static :class:`PackPlan` — passing a PackedKKT through ``jax.jit``
-    re-specializes on layout changes automatically."""
-
-    Qb: jnp.ndarray
-    Rb: jnp.ndarray
-    Ab: jnp.ndarray
-    Bb: jnp.ndarray
-    qb: jnp.ndarray
-    rb: jnp.ndarray
-    cb: jnp.ndarray
+    Q: jnp.ndarray
+    R: jnp.ndarray
+    A: jnp.ndarray
+    B: jnp.ndarray
+    q: jnp.ndarray
+    r: jnp.ndarray
+    c: jnp.ndarray
     plan: PackPlan
 
+    def blocks(self) -> KKTBlocks:
+        return KKTBlocks(*(getattr(self, f) for f in _DATA))
 
-@functools.partial(
-    jax.tree_util.register_dataclass,
-    data_fields=["lam_p", "dzx_p", "dzu_p", "iters", "converged", "eta"],
-    meta_fields=["plan"],
-)
+
+_RESULT = ["lam_p", "dzx_p", "dzu_p", "iters", "converged", "eta"]
+
+
+@functools.partial(jax.tree_util.register_dataclass, data_fields=_RESULT,
+                   meta_fields=["plan"])
 @dataclasses.dataclass(frozen=True)
 class PackedSolveResult:
-    """Solve outputs with trajectory arrays still in kernel layout.
-
-    ``iters``/``converged``/``eta`` are already per-problem ``(B,)`` arrays
-    (scalars after ``unpack`` when the pack was unbatched); ``lam_p`` /
-    ``dzx_p`` / ``dzu_p`` are packed ``(n_groups, sp, L)``."""
+    """Solve outputs with the packed batch axis kept: ``lam_p``/``dzx_p``
+    ``(B, K, s)``, ``dzu_p`` ``(B, K-1, c)``, ``iters``/``converged``/
+    ``eta`` ``(B,)`` (scalars after ``unpack`` when the pack was
+    unbatched)."""
 
     lam_p: jnp.ndarray
     dzx_p: jnp.ndarray
@@ -138,192 +103,47 @@ class PackedSolveResult:
 
     @property
     def lam_packed(self) -> jnp.ndarray:
-        """Multipliers in kernel layout — feed as ``solve_packed(lam0=...)``
-        to warm-start the next solve with zero relayout on the carry."""
+        """Multipliers with the packed batch axis — feed as
+        ``solve_packed(lam0=...)`` to warm-start the next solve."""
         return self.lam_p
 
     def unpack(self) -> SolveResult:
-        """Convert to public SolveResult shapes ((B, K, s) batched,
-        (K, s) otherwise)."""
-        return _unpack_result(self)
+        """Public SolveResult shapes ((B, K, s) batched, (K, s) otherwise)."""
+        res = SolveResult(*(getattr(self, f) for f in _RESULT))
+        if self.plan.batched:
+            return res
+        return SolveResult(*(x[0] for x in res))
 
 
-def _plan_for(method: str, Bn: int, K: int, s: int, c: int,
-              batched: bool, tier: Optional[str] = None) -> PackPlan:
-    from .kernels import direct_fused, fused_solve
-
-    if tier is not None and not (method == "direct" and tier in ("cr",
-                                                                 "thomas")):
-        raise ValueError(
-            f"tier={tier!r} is not a packable choice for method={method!r}; "
-            "explicit tiers exist for method='direct' only: 'thomas' "
-            "(batch-in-lanes block-Thomas) or 'cr' (knots-in-lanes cyclic "
-            "reduction)")
-    if method == "direct" and tier != "cr":
-        # Wide batches pack batch-in-lanes for the block-Thomas kernel
-        # (kernels/thomas_batch.py) — the measured-fastest exact tier from
-        # B >= _MIN_BATCH (0.9 vs 6.9 us/solve at B=256, v5e).  tier='cr'
-        # opts out (e.g. to match a CR-geometry fleet deployment);
-        # tier='thomas' forces it below the auto boundary.
-        from .kernels import thomas_batch
-
-        forced = tier == "thomas"
-        if forced and not thomas_batch.fits(Bn, K, s, c):
-            raise ValueError(
-                f"tier='thomas' was requested but the batch-Thomas kernel "
-                f"declines (B={Bn}, K={K}, s={s}, c={c}): lane plan or HBM "
-                f"factor budget exceeded (thomas_batch.fits)")
-        if forced or thomas_batch.should_dispatch(Bn, K, s, c):
-            sp, Lb, n_groups = thomas_batch.plan_packing(Bn, s, c)
-            # g = Lb: one problem per lane, groups hold contiguous problem
-            # blocks (the dp-sharding convention shared with the CR plan).
-            return PackPlan(method=method, batched=batched, batch=Bn, K=K,
-                            s=s, c=c, K_sub=K, g=Lb, L=Lb,
-                            n_groups=n_groups, sp=sp, tier="thomas")
-    if method == "pcg" and not fused_solve.fits_vmem(K, s, c):
-        from .kernels import longk
-
-        if longk.should_dispatch(K, s, c):
-            # Long-horizon tier: one problem per group in (B, ·, sp, Kp)
-            # layout (longk.solve_longk_batched's pm/pv convention).
-            sp, Kp, _, _ = longk.plan_longk(K, s, c)
-            return PackPlan(method=method, batched=batched, batch=Bn, K=K,
-                            s=s, c=c, K_sub=Kp, g=1, L=Kp, n_groups=Bn,
-                            sp=sp, tier="longk")
-    if method == "direct" and not direct_fused.fits_vmem(K, s, c):
-        from .kernels import longk
-
-        if longk.should_dispatch_direct(K, s, c):
-            # Long-horizon EXACT tier (longk.solve_direct_longk) — same
-            # one-problem-per-group geometry as the PCG longk plan, so a
-            # long-K pack serves both methods (the relabel rule below).
-            sp, Kp, _, _ = longk.plan_longk(K, s, c)
-            return PackPlan(method=method, batched=batched, batch=Bn, K=K,
-                            s=s, c=c, K_sub=Kp, g=1, L=Kp, n_groups=Bn,
-                            sp=sp, tier="longk")
-    mod = direct_fused if method == "direct" else fused_solve
-    K_sub, g, L, n_groups, sp = mod.plan_packing(Bn, K, s, c)
-    return PackPlan(method=method, batched=batched, batch=Bn, K=K, s=s, c=c,
-                    K_sub=K_sub, g=g, L=L, n_groups=n_groups, sp=sp)
+def _staged(blocks, dtype) -> KKTBlocks:
+    return KKTBlocks(*(jnp.asarray(a, dtype) for a in blocks))
 
 
-def _regroup_bt(x, *, plan: PackPlan):
-    """thomas layout (n_groups*K, ...) -> (n_groups, K, ...): a free
-    contiguous reshape that puts the GROUP axis leading, so the dp fleet
-    sharding (solve_packed_dp, P(axis) on dim 0) works for every tier."""
-    return x.reshape((plan.n_groups, plan.K) + x.shape[1:])
+def pack(spec: ProblemSpec, blocks: KKTBlocks,
+         dtype="float32") -> PackedKKT:
+    """Cast, check and stage KKT blocks on the device for repeated solves.
 
-
-@functools.partial(jax.jit, static_argnames=("plan",))
-def _pack_all(Q, R, A, B, q, r, c, *, plan: PackPlan):
-    if plan.tier == "thomas":
-        from .kernels import thomas_batch as tb
-
-        pm = functools.partial(tb._pack_mat_bt, sp=plan.sp, Lb=plan.L,
-                               n_groups=plan.n_groups)
-        pv = functools.partial(tb._pack_vec_bt, sp=plan.sp, Lb=plan.L,
-                               n_groups=plan.n_groups)
-        g = functools.partial(_regroup_bt, plan=plan)
-        # Interval arrays stored PRE-SHIFTED one knot right (tb._shift1) —
-        # the form the kernels consume, so serving pays zero relayout.
-        return (g(pm(Q)), g(pm(tb._shift1(R))), g(pm(tb._shift1(A))),
-                g(pm(tb._shift1(B))), g(pv(q)), g(pv(tb._shift1(r))),
-                g(pv(c)))
-    from .kernels.fused_solve import _pack_mat, _pack_vec
-
-    pm = functools.partial(_pack_mat, K_sub=plan.K_sub, g=plan.g, L=plan.L,
-                           n_groups=plan.n_groups, sp=plan.sp)
-    pv = functools.partial(_pack_vec, K_sub=plan.K_sub, g=plan.g, L=plan.L,
-                           n_groups=plan.n_groups, sp=plan.sp)
-    return pm(Q), pm(R), pm(A), pm(B), pv(q), pv(r), pv(c)
-
-
-@functools.partial(jax.jit, static_argnames=("plan",))
-def _pack_vectors(q, r, c, *, plan: PackPlan):
-    if plan.tier == "thomas":
-        from .kernels import thomas_batch as tb
-
-        pv = functools.partial(tb._pack_vec_bt, sp=plan.sp, Lb=plan.L,
-                               n_groups=plan.n_groups)
-        g = functools.partial(_regroup_bt, plan=plan)
-        return g(pv(q)), g(pv(tb._shift1(r))), g(pv(c))
-    from .kernels.fused_solve import _pack_vec
-
-    pv = functools.partial(_pack_vec, K_sub=plan.K_sub, g=plan.g, L=plan.L,
-                           n_groups=plan.n_groups, sp=plan.sp)
-    return pv(q), pv(r), pv(c)
-
-
-def pack(
-    spec: ProblemSpec,
-    blocks: KKTBlocks,
-    *,
-    method: str = "pcg",
-    tier: Optional[str] = None,
-) -> PackedKKT:
-    """Relayout KKT blocks into the fused kernels' lane-packed form.
-
-    Args:
-      spec: static problem shape (consistency-checked against ``blocks``).
-      blocks: packed KKT data (formats.pack_kkt), with or without a leading
-        batch axis (``Q.ndim == 4`` means batched).
-      method: 'pcg' | 'direct' — which fused kernel the layout is sized for.
-        Their VMEM budgets differ, but at shapes where both plan the same
-        geometry (most small/medium configs) one packed value serves both
-        methods; ``solve_packed`` relabels when geometries match and raises
-        otherwise.
-      tier: method='direct' only — override the batch-width kernel pick.
-        None (default) follows thomas_batch.should_dispatch: batch-in-lanes
-        block-Thomas geometry at wide batches (the measured-fastest exact
-        tier, 0.9 vs 6.9 us/solve at B=256 on v5e), knots-in-lanes cyclic
-        reduction below.  'cr' forces the CR geometry (e.g. to share one
-        pack between methods at a geometry-coinciding shape); 'thomas'
-        forces the Thomas geometry below the auto boundary (raises past
-        its lane/HBM budgets).
-
-    For BOTH methods, horizons past the fused kernels' VMEM budgets plan
-    the long-horizon tiers (kernels/longk.py) automatically
-    (``plan.tier == 'longk'``): the whole-solve PCG ladder for 'pcg', the
-    one-kernel cyclic-reduction tier for 'direct' (within fits_direct_xl).
-    Raises ValueError when no kernel tier owns the shape (see module
-    docstring) or when the blocks are not float32 (the Mosaic kernels lower
-    float32 only).
-    """
-    if method not in ("pcg", "direct"):
-        raise ValueError(f"unknown method {method!r}; valid: 'pcg', 'direct'")
-    b = KKTBlocks(*(jnp.asarray(a) for a in blocks))
-    if any(jnp.dtype(a.dtype) != jnp.float32 for a in b):
-        raise ValueError(
-            "pack() feeds float32-only Mosaic kernels; cast the blocks to "
-            "float32 (f64 compute runs the pure-XLA path via solve())"
-        )
+    ``blocks`` (formats.pack_kkt layout) may carry a leading batch axis
+    (``Q.ndim == 4`` means batched).  ``dtype`` is the precision every solve
+    of this pack runs in (float64 needs ``jax_enable_x64``).  Raises
+    ValueError on a shape that does not match ``spec``."""
+    b = _staged(blocks, dtype)
     batched = b.Q.ndim == 4
     if not batched:
         b = KKTBlocks(*(a[None] for a in b))
     Bn = b.Q.shape[0]
-    K, s, cdim = spec.knot_points, spec.state_size, spec.control_size
-    from .formats import check_block_shapes
-
-    check_block_shapes(spec, b, lead=(Bn,))  # every field — kernels zero-pad
-    plan = _plan_for(method, Bn, K, s, cdim, batched, tier=tier)
-    Qb, Rb, Ab, Bb, qb, rb, cb = _pack_all(*b, plan=plan)
-    return PackedKKT(Qb=Qb, Rb=Rb, Ab=Ab, Bb=Bb, qb=qb, rb=rb, cb=cb,
-                     plan=plan)
+    check_block_shapes(spec, b, lead=(Bn,))
+    plan = PackPlan(batched=batched, batch=Bn, K=spec.knot_points,
+                    s=spec.state_size, c=spec.control_size,
+                    dtype=b.Q.dtype.name)
+    return PackedKKT(*jax.device_put(tuple(b)), plan=plan)
 
 
 def update_vectors(packed: PackedKKT, q, r, c) -> PackedKKT:
     """Return a PackedKKT with fresh rhs vectors (q, r, c) and the SAME
-    matrices — the cheap refresh for serving a frozen linearization: the
-    three ``(B, K, n)`` vector relayouts cost O(s) per knot where the full
-    pack pays O(s^2) per knot for the four matrix stacks."""
+    matrices — the cheap refresh for serving a frozen linearization."""
     plan = packed.plan
-    q, r, c = (jnp.asarray(x) for x in (q, r, c))
-    if any(jnp.dtype(x.dtype) != jnp.float32 for x in (q, r, c)):
-        # Same guardrail as pack(): refuse to silently downcast (the kernels
-        # are f32-only; f64 compute runs the pure-XLA path via solve()).
-        raise ValueError(
-            "update_vectors feeds float32-only Mosaic kernels; cast the "
-            "vectors to float32")
+    q, r, c = (jnp.asarray(x, plan.dtype) for x in (q, r, c))
     if not plan.batched:
         q, r, c = q[None], r[None], c[None]
     expect = {
@@ -337,178 +157,31 @@ def update_vectors(packed: PackedKKT, q, r, c) -> PackedKKT:
             raise ValueError(
                 f"{name} shape {arr.shape} does not match the packed plan's "
                 f"{expect[name]}{batched_note}")
-    qb, rb, cb = _pack_vectors(q, r, c, plan=plan)
-    return dataclasses.replace(packed, qb=qb, rb=rb, cb=cb)
+    return dataclasses.replace(packed, q=q, r=r, c=c)
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("plan", "precond", "poly_degree", "interpret", "unroll"),
-)
-def _solve_packed_pcg(
-    Qb, Rb, Ab, Bb, qb, rb, cb, lb, rho, exit_tol, max_iters, *,
-    plan: PackPlan, precond: str, poly_degree: int, interpret: bool,
-    unroll: int,
-):
-    from .kernels import fused_solve
-
-    lam_p, dzx_p, dzu_p, iters, conv, eta = fused_solve._call_fused(
-        rho, exit_tol, max_iters, Qb, Rb, Ab, Bb, qb, rb, cb, lb,
-        s=plan.s, c=plan.c, K_sub=plan.K_sub, g=plan.g, L=plan.L, sp=plan.sp,
-        n_groups=plan.n_groups, flops_scale=plan.batch * plan.K,
-        poly_degree=poly_degree, precond=precond, interpret=interpret,
-        unroll=unroll,
-    )
-    per = functools.partial(_per_problem, plan=plan)
-    return PackedSolveResult(
-        lam_p=lam_p, dzx_p=dzx_p, dzu_p=dzu_p,
-        iters=per(iters), converged=per(conv) != 0, eta=per(eta), plan=plan,
-    )
+def _check_options(options: SolverOptions, plan: PackPlan,
+                   what: str) -> None:
+    if jnp.dtype(options.dtype) != jnp.dtype(plan.dtype):
+        raise ValueError(
+            f"{what}: the pack holds {plan.dtype} arrays but "
+            f"options.dtype={options.dtype!r}; pack with dtype="
+            f"{options.dtype!r} to solve in that precision")
 
 
-@functools.partial(jax.jit, static_argnames=("plan", "interpret"))
-def _solve_packed_direct(
-    Qb, Rb, Ab, Bb, qb, rb, cb, rho, *, plan: PackPlan, interpret: bool,
-):
-    from .direct import residual_converged
-    from .kernels import direct_fused
-
-    lam_p, dzx_p, dzu_p, eta, gnorm = direct_fused._call_direct(
-        rho, Qb, Rb, Ab, Bb, qb, rb, cb,
-        s=plan.s, c=plan.c, K_sub=plan.K_sub, g=plan.g, L=plan.L, sp=plan.sp,
-        n_groups=plan.n_groups, flops_scale=plan.batch * plan.K,
-        interpret=interpret,
-    )
-    per = functools.partial(_per_problem, plan=plan)
-    eta_b = per(eta)
-    return PackedSolveResult(
-        lam_p=lam_p, dzx_p=dzx_p, dzu_p=dzu_p,
-        iters=jnp.zeros((plan.batch,), jnp.int32),
-        converged=residual_converged(eta_b, per(gnorm)),
-        eta=eta_b, plan=plan,
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("plan", "interpret"))
-def _solve_packed_direct_thomas(
-    Qb, Rb, Ab, Bb, qb, rb, cb, rho, *, plan: PackPlan, interpret: bool,
-):
-    """Batch-in-lanes Thomas solve from a stored pack.  Measured v5e IIWA
-    B=256 (chain-differenced serving loop, BENCH_DETAIL
-    iiwa_batch_256_direct_served): ~0.90 us/solve — within run-to-run noise
-    of the solve_batched chain (whose perturb protocol repacks only Q and q;
-    the relayout share is small next to the knot walk at this shape).  The
-    surface's value is structural: no per-call matrix relayout, rhs-only
-    refresh, and the dp fleet sharding of one stored pack."""
-    from .direct import residual_converged
-    from .kernels import thomas_batch as tb
-
-    def flat(x):
-        return x.reshape((plan.n_groups * plan.K,) + x.shape[2:])
-
-    lam_p, dzx_p, dzu_p, eta, gnorm = tb._call_thomas(
-        rho, flat(Qb), flat(Rb), flat(Ab), flat(Bb),
-        flat(qb), flat(rb), flat(cb),
-        s=plan.s, c=plan.c, sp=plan.sp, K=plan.K, Lb=plan.L,
-        n_groups=plan.n_groups, flops_scale=plan.batch * plan.K,
-        interpret=interpret,
-    )
-    per = functools.partial(tb._per_problem_bt, B=plan.batch, Lb=plan.L,
-                            n_groups=plan.n_groups)
-    eta_b = per(eta)
-    return PackedSolveResult(
-        lam_p=lam_p, dzx_p=dzx_p, dzu_p=dzu_p,
-        iters=jnp.zeros((plan.batch,), jnp.int32),
-        converged=residual_converged(eta_b, per(gnorm)),
-        eta=eta_b, plan=plan,
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("plan", "interpret"))
-def _solve_packed_direct_longk(
-    Qb, Rb, Ab, Bb, qb, rb, cb, rho, *, plan: PackPlan, interpret: bool,
-):
-    from .direct import residual_converged
-    from .kernels import longk
-
-    # Chunking statics re-derived from the shape (the _solve_packed_longk
-    # convention); the tier itself was validated at pack() time.  The CR
-    # tier follows direct_tier: one-kernel 'xl' within residency, the
-    # compacting-peel 'hybrid' beyond (round 5 — unlimited K).
-    sp, Kp, Lc, n_chunks, _, _ = longk._plan_dispatch(
-        plan.K, plan.s, plan.c, "xl", None)
-    lamb, dzxb, dzub, eta, gnorm = longk._solve_direct_longk_packed(
-        Qb, Rb, Ab, Bb, qb, rb, cb, rho,
-        s=plan.s, cdim=plan.c, sp=sp, Kp=Kp, Lc=Lc, n_chunks=n_chunks,
-        interpret=interpret, tier=longk.direct_tier(plan.K, plan.s, plan.c),
-    )
-    return PackedSolveResult(
-        lam_p=lamb, dzx_p=dzxb, dzu_p=dzub,
-        iters=jnp.zeros((plan.batch,), jnp.int32),
-        converged=residual_converged(eta, gnorm),
-        eta=eta, plan=plan,
-    )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("plan", "precond", "poly_degree", "interpret"),
-)
-def _solve_packed_longk(
-    Qb, Rb, Ab, Bb, qb, rb, cb, lb, rho, exit_tol, max_iters, *,
-    plan: PackPlan, precond: str, poly_degree: int, interpret: bool,
-):
-    from .kernels import longk
-
-    # Chunking / in-tier selection statics are a pure function of the
-    # problem shape — re-derived here rather than stored in the plan.
-    sp, Kp, Lc, n_chunks, ltier, stream = longk._plan_dispatch(
-        plan.K, plan.s, plan.c, None, None)
-    lamb, dzxb, dzub, iters, conv, eta = longk._solve_longk_packed(
-        Qb, Rb, Ab, Bb, qb, rb, cb, lb, rho, exit_tol, max_iters,
-        s=plan.s, cdim=plan.c, sp=sp, Kp=Kp, Lc=Lc, n_chunks=n_chunks,
-        tier=ltier, stream=stream, poly_degree=poly_degree,
-        preconditioner=precond, interpret=interpret,
-    )
-    return PackedSolveResult(
-        lam_p=lamb, dzx_p=dzxb, dzu_p=dzub,
-        iters=iters[:, 0, 0], converged=conv[:, 0, 0] != 0,
-        eta=eta[:, 0, 0], plan=plan,
-    )
-
-
-def _per_problem(x, *, plan: PackPlan):
-    """(n_groups, sublanes, L) aux output -> (B,) per-problem values (lane 0
-    of each problem's segment; same extraction as solve_fused_batched)."""
-    v = x[:, 0, : plan.g * plan.K_sub]
-    v = v.reshape(plan.n_groups * plan.g, plan.K_sub)
-    return v[: plan.batch, 0]
-
-
-@jax.jit
-def _unpack_result(res: PackedSolveResult) -> SolveResult:
-    # ``plan`` rides in the pytree's static metadata (a meta field of the
-    # registered dataclass), so the jit cache keys on it automatically.
-    plan = res.plan
-    if plan.tier == "thomas":
-        from .kernels.thomas_batch import _unpack_vec_bt
-
-        up = functools.partial(_unpack_vec_bt, B=plan.batch, K=plan.K,
-                               Lb=plan.L, n_groups=plan.n_groups)
-    else:
-        from .kernels.fused_solve import _unpack_vec
-
-        up = functools.partial(_unpack_vec, B=plan.batch, K=plan.K,
-                               K_sub=plan.K_sub, g=plan.g)
-    lam = up(res.lam_p, n=plan.s)
-    dz_x = up(res.dzx_p, n=plan.s)
-    dz_u = up(res.dzu_p, n=plan.c)[:, : plan.K - 1, :]
-    if not plan.batched:
-        return SolveResult(lam=lam[0], dz_x=dz_x[0], dz_u=dz_u[0],
-                           iters=res.iters[0], converged=res.converged[0],
-                           eta=res.eta[0])
-    return SolveResult(lam=lam, dz_x=dz_x, dz_u=dz_u, iters=res.iters,
-                       converged=res.converged, eta=res.eta)
+def _packed_lam0(lam0, plan: PackPlan, lead=()) -> jnp.ndarray:
+    """Warm start as ``lead + (B, K, s)``: a packed carry, the public
+    unbatched (K, s) form, or zeros when None."""
+    full = lead + (plan.batch, plan.K, plan.s)
+    if lam0 is None:
+        return _cached_const(0, plan.dtype, full)
+    lam0 = jnp.asarray(lam0, plan.dtype)
+    if lam0.shape == full:
+        return lam0
+    if not plan.batched and lam0.shape == lead + (plan.K, plan.s):
+        return lam0[..., None, :, :]
+    raise ValueError(f"lam0 shape {lam0.shape} does not match the packed "
+                     f"carry {full}")
 
 
 def solve_packed(
@@ -516,170 +189,69 @@ def solve_packed(
     options: SolverOptions = SolverOptions(),
     lam0: Optional[jnp.ndarray] = None,
 ) -> PackedSolveResult:
-    """Solve from pre-packed inputs — the fused kernel dispatch with zero
-    public-surface relayout on the critical path.
+    """Solve from staged inputs: the backend choice and one jitted solve.
 
-    Args:
-      packed: a :class:`PackedKKT` from :func:`pack` / :func:`update_vectors`.
-      options: runtime options; ``options.method`` must match the method the
-        layout was planned for, OR plan an identical packing geometry at
-        this shape (then the plan is relabeled in place — pack once, choose
-        the method per call).  A genuine geometry mismatch raises — never a
-        silent repack.
-      lam0: optional warm start — either a packed ``(n_groups, sp, L)`` carry
-        (``PackedSolveResult.lam_packed``: zero relayout) or a public
-        ``(B, K, s)`` / ``(K, s)`` array (packed here once).  Like the MPC
-        sequence APIs, a supplied ``lam0`` is USED regardless of
-        ``options.warm_start`` — chaining is the point of this API.
+    ``options.method`` selects PCG or the exact solver per call.  ``lam0``
+    is a previous result's ``lam_packed`` (or the public ``(K, s)`` array
+    of an unbatched pack); like the MPC sequence APIs, a supplied ``lam0``
+    is USED regardless of ``options.warm_start`` — chaining is the point of
+    this API.  Returns a :class:`PackedSolveResult`; call ``.unpack()`` for
+    public shapes."""
+    from .solver import resolve_backend
 
-    Returns a :class:`PackedSolveResult`; call ``.unpack()`` for public
-    shapes.
-    """
     plan = packed.plan
-    if options.method != plan.method:
-        # The two kernels size their packings from different VMEM budgets,
-        # but at many shapes the resulting geometry coincides — then the
-        # packed arrays are directly valid for the other kernel and the
-        # plan is just relabeled (pack once, choose the method per call).
-        # Only a genuine geometry difference raises.
-        try:
-            alt = _plan_for(options.method, plan.batch, plan.K, plan.s,
-                            plan.c, plan.batched)
-        except ValueError:
-            alt = None
-        if alt != plan._replace(method=options.method):
-            raise ValueError(
-                f"this PackedKKT was packed for method={plan.method!r} and "
-                f"the {options.method!r} kernel plans a different packing "
-                f"geometry at this shape — repack with "
-                f"pack(..., method={options.method!r})"
-            )
-        plan = alt
-    if jnp.dtype(options.dtype) != jnp.float32:
-        raise ValueError(
-            "solve_packed runs float32-only Mosaic kernels; dtype="
-            f"{options.dtype!r} needs the standard solve() API"
-        )
-    interpret = jax.default_backend() != "tpu"
-    dt = jnp.float32
-    rho = _cached_const(options.rho, dt)
-
-    if plan.method == "direct":
-        if plan.tier == "thomas":
-            return _solve_packed_direct_thomas(
-                packed.Qb, packed.Rb, packed.Ab, packed.Bb,
-                packed.qb, packed.rb, packed.cb, rho,
-                plan=plan, interpret=interpret,
-            )
-        if plan.tier == "longk":
-            return _solve_packed_direct_longk(
-                packed.Qb, packed.Rb, packed.Ab, packed.Bb,
-                packed.qb, packed.rb, packed.cb, rho,
-                plan=plan, interpret=interpret,
-            )
-        return _solve_packed_direct(
-            packed.Qb, packed.Rb, packed.Ab, packed.Bb,
-            packed.qb, packed.rb, packed.cb, rho,
-            plan=plan, interpret=interpret,
-        )
-
-    if options.preconditioner.value not in (
-            "symmetric_stair", "block_jacobi", "jacobi"):
-        raise ValueError(
-            f"unknown preconditioner {options.preconditioner!r}")
-    if lam0 is None:
-        lb = _cached_const(0, dt, (plan.n_groups, plan.sp, plan.L))
-    else:
-        lam0 = jnp.asarray(lam0, dt)
-        public = ((plan.K, plan.s) if not plan.batched
-                  else (plan.batch, plan.K, plan.s))
-        if lam0.shape == (plan.n_groups, plan.sp, plan.L):
-            lb = lam0  # already packed (a previous solve's carry)
-        elif lam0.shape == public:
-            from .kernels.fused_solve import _pack_vec
-
-            lb = _pack_vec(lam0.reshape(plan.batch, plan.K, plan.s),
-                           K_sub=plan.K_sub, g=plan.g, L=plan.L,
-                           n_groups=plan.n_groups, sp=plan.sp)
-        else:
-            raise ValueError(
-                f"lam0 shape {lam0.shape} is neither the packed carry "
-                f"{(plan.n_groups, plan.sp, plan.L)} nor the public "
-                f"{public}")
-    if plan.tier == "longk":
-        return _solve_packed_longk(
-            packed.Qb, packed.Rb, packed.Ab, packed.Bb,
-            packed.qb, packed.rb, packed.cb, lb,
-            rho,
-            _cached_const(options.exit_tol, dt),
-            _cached_const(options.max_iters, jnp.int32),
-            plan=plan, precond=options.preconditioner.value,
-            poly_degree=options.precond_poly_degree, interpret=interpret,
-        )
-    # Same unroll policy as solve_fused_batched (measured on v5e: while-trip
-    # overhead only dominates at g=1).
-    unroll = 4 if plan.g == 1 else 1
-    return _solve_packed_pcg(
-        packed.Qb, packed.Rb, packed.Ab, packed.Bb,
-        packed.qb, packed.rb, packed.cb, lb,
-        rho,
+    _check_options(options, plan, "solve_packed")
+    spec = ProblemSpec(plan.s, plan.c, plan.K)
+    backend = resolve_backend(None, options, spec)
+    dt = plan.dtype
+    res = _solve_batched_core(
+        *packed.blocks(), _packed_lam0(lam0, plan),
+        _cached_const(options.rho, dt),
         _cached_const(options.exit_tol, dt),
         _cached_const(options.max_iters, jnp.int32),
-        plan=plan, precond=options.preconditioner.value,
-        poly_degree=options.precond_poly_degree, interpret=interpret,
-        unroll=unroll,
+        options.preconditioner, backend, options.method,
+        options.precond_poly_degree,
     )
+    return PackedSolveResult(*res, plan=plan)
 
 
 # ---------------------------------------------------------------------------
-# Sequence farms: pack the whole (T, B) stream once (VERDICT r4 #4)
-# ---------------------------------------------------------------------------
+# Sequence farms: stage the whole (T, B) stream once.
 
 
-@functools.partial(
-    jax.tree_util.register_dataclass,
-    data_fields=["Qb", "Rb", "Ab", "Bb", "qb", "rb", "cb"],
-    meta_fields=["plan"],
-)
+@functools.partial(jax.tree_util.register_dataclass, data_fields=_DATA,
+                   meta_fields=["plan"])
 @dataclasses.dataclass(frozen=True)
 class PackedKKTSequence:
-    """A (T, B) MPC-farm input stream in kernel layout: matrices
-    ``(T, n_groups, n_cols, sp, L)``, vectors ``(T, n_groups, sp, L)``.
+    """A (T, B) MPC-farm input stream staged on the device: KKTBlocks fields
+    with leading (T, B) axes, in ``plan.dtype``.  A long-session serving loop packs
+    each window once and carries the warm start on the device
+    (``PackedSequenceResult.lam_tail_packed`` -> the next window's
+    ``lam0``)."""
 
-    The public mpc.solve_sequence_batched packs its stream per CALL — fine
-    for one window, but a long-session serving loop re-enters the public
-    surface every window and pays XLA relayouts whose per-step cost GROWS
-    with the window length (measured e2e 0.111 -> 0.233 ms/step between
-    chain pairs (64,128) and (128,256) at B=64, while the farm kernel
-    itself is linear in T — CLAUDE.md).  Packing the stream once and
-    carrying the warm start packed (``PackedSequenceResult.lam_tail_packed``
-    -> the next window's ``lam0``) keeps the loop at the kernel's flat
-    per-step rate at any horizon."""
-
-    Qb: jnp.ndarray
-    Rb: jnp.ndarray
-    Ab: jnp.ndarray
-    Bb: jnp.ndarray
-    qb: jnp.ndarray
-    rb: jnp.ndarray
-    cb: jnp.ndarray
+    Q: jnp.ndarray
+    R: jnp.ndarray
+    A: jnp.ndarray
+    B: jnp.ndarray
+    q: jnp.ndarray
+    r: jnp.ndarray
+    c: jnp.ndarray
     plan: PackPlan
 
     @property
     def T(self) -> int:
-        return self.Qb.shape[0]
+        return self.Q.shape[0]
+
+    def blocks(self) -> KKTBlocks:
+        return KKTBlocks(*(getattr(self, f) for f in _DATA))
 
 
-@functools.partial(
-    jax.tree_util.register_dataclass,
-    data_fields=["lam_p", "dzx_p", "dzu_p", "iters", "converged", "eta"],
-    meta_fields=["plan"],
-)
+@functools.partial(jax.tree_util.register_dataclass, data_fields=_RESULT,
+                   meta_fields=["plan"])
 @dataclasses.dataclass(frozen=True)
 class PackedSequenceResult:
-    """Farm outputs with trajectories in kernel layout
-    (``(T, n_groups, sp, L)``); ``iters``/``converged``/``eta`` are already
-    per-problem ``(T, B)``."""
+    """Farm outputs: trajectories ``(T, B, K, ·)``, ``iters``/``converged``/
+    ``eta`` ``(T, B)``."""
 
     lam_p: jnp.ndarray
     dzx_p: jnp.ndarray
@@ -691,111 +263,37 @@ class PackedSequenceResult:
 
     @property
     def lam_tail_packed(self) -> jnp.ndarray:
-        """The final step's multipliers in kernel layout — feed as the next
-        window's ``solve_packed_sequence(lam0=...)`` so a streaming serving
-        loop carries its warm start with zero relayout across host calls."""
+        """The final step's multipliers ``(B, K, s)`` — feed as the next
+        window's ``solve_packed_sequence(lam0=...)``."""
         return self.lam_p[-1]
 
     def unpack(self) -> SolveResult:
         """Public shapes: lam/dz_x ``(T, B, K, s)``, dz_u
         ``(T, B, K-1, c)``, aux ``(T, B)``."""
-        return _unpack_sequence_result(self)
+        return SolveResult(*(getattr(self, f) for f in _RESULT))
 
 
 def pack_sequence(spec: ProblemSpec, blocks: KKTBlocks,
-                  *, method: str = "pcg") -> PackedKKTSequence:
-    """Relayout a (T, B) farm stream once, for solve_packed_sequence.
+                  dtype="float32") -> PackedKKTSequence:
+    """Cast, check and stage a (T, B) farm stream once, for
+    solve_packed_sequence (``dtype`` as in :func:`pack`).
 
     ``blocks`` arrays carry leading (T, B) axes (the
     mpc.solve_sequence_batched convention).  Only the warm-started PCG farm
-    on the fused tier is packable: the EXACT farm has no warm-start carry,
-    so its (T, B) grid folds into ONE batch of T*B solves — use
-    ``pack(spec, folded_batch, method='direct')`` for that deployment (the
-    mpc._solve_sequence_batched_direct_core fold); and horizons past the
-    fused VMEM budget route to the longk sequence tier, which hoists its
-    own packing (mpc docstring)."""
-    if method != "pcg":
-        raise ValueError(
-            "pack_sequence serves the warm-started PCG farm only; the "
-            "exact farm folds its (T, B) grid into one batch — pack(spec, "
-            "folded_batch, method='direct') (mpc module docstring)")
-    dt = jnp.float32
-    Q = jnp.asarray(blocks.Q, dt)
-    if Q.ndim != 5:
+    is served this way: the EXACT farm has no warm-start carry, so its
+    (T, B) grid folds into ONE batch of T*B solves — ``pack`` that folded
+    batch and call ``solve_packed`` with ``method='direct'``."""
+    b = _staged(blocks, dtype)
+    if b.Q.ndim != 5:
         raise ValueError(
             f"pack_sequence expects leading (T, B) axes on every array "
-            f"(Q is {Q.ndim}-d); for a single sequence add a B=1 axis")
-    T, Bn, K, s, _ = Q.shape
-    cdim = jnp.asarray(blocks.R).shape[-1]
-    if (K, s, cdim) != (spec.knot_points, spec.state_size,
-                        spec.control_size):
-        raise ValueError(
-            f"blocks shaped for (K={K}, s={s}, c={cdim}) but spec says "
-            f"({spec.knot_points}, {spec.state_size}, {spec.control_size})")
-    plan = _plan_for("pcg", Bn, K, s, cdim, batched=True)
-    if plan.tier != "fused":
-        raise ValueError(
-            f"K={K} at (s={s}, c={cdim}) routes past the fused tier "
-            f"(tier={plan.tier!r}); use mpc.solve_sequence_batched there — "
-            "its longk path hoists the packing itself")
-    arrs = tuple(jnp.asarray(a, dt) for a in
-                 (blocks.Q, blocks.R, blocks.A, blocks.B,
-                  blocks.q, blocks.r, blocks.c))
-    packed = jax.vmap(lambda *a: _pack_all(*a, plan=plan))(*arrs)
-    return PackedKKTSequence(*packed, plan=plan)
-
-
-def _per_problem_seq(x, *, plan: PackPlan):
-    """(T, n_groups, sublanes, L) aux -> (T, B)."""
-    T = x.shape[0]
-    v = x[:, :, 0, : plan.g * plan.K_sub]
-    v = v.reshape(T, plan.n_groups * plan.g, plan.K_sub)
-    return v[:, : plan.batch, 0]
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("plan", "precond", "poly_degree", "interpret", "unroll"),
-)
-def _solve_packed_sequence(
-    Qb, Rb, Ab, Bb, qb, rb, cb, lb, rho, exit_tol, max_iters, *,
-    plan: PackPlan, precond: str, poly_degree: int, interpret: bool,
-    unroll: int,
-):
-    from .kernels import fused_solve
-
-    T = Qb.shape[0]
-    rhos = jnp.broadcast_to(jnp.asarray(rho, jnp.float32), (T,))
-    lam_p, dzx_p, dzu_p, iters, conv, eta = fused_solve._call_fused_sequence(
-        rhos, exit_tol, max_iters, Qb, Rb, Ab, Bb, qb, rb, cb, lb,
-        s=plan.s, c=plan.c, K_sub=plan.K_sub, g=plan.g, L=plan.L,
-        sp=plan.sp, n_groups=plan.n_groups, T=T,
-        flops_scale=plan.batch * plan.K, poly_degree=poly_degree,
-        precond=precond, interpret=interpret, unroll=unroll,
-    )
-    per = functools.partial(_per_problem_seq, plan=plan)
-    return PackedSequenceResult(
-        lam_p=lam_p, dzx_p=dzx_p, dzu_p=dzu_p,
-        iters=per(iters), converged=per(conv) != 0, eta=per(eta), plan=plan,
-    )
-
-
-@jax.jit
-def _unpack_sequence_result(res: PackedSequenceResult) -> SolveResult:
-    from .kernels.fused_solve import _unpack_vec
-
-    plan = res.plan
-
-    def up(xs, n):
-        return jax.vmap(lambda x: _unpack_vec(x, B=plan.batch, K=plan.K,
-                                              n=n, K_sub=plan.K_sub,
-                                              g=plan.g))(xs)
-
-    lam = up(res.lam_p, plan.s)
-    dz_x = up(res.dzx_p, plan.s)
-    dz_u = up(res.dzu_p, plan.c)[:, :, : plan.K - 1, :]
-    return SolveResult(lam=lam, dz_x=dz_x, dz_u=dz_u, iters=res.iters,
-                       converged=res.converged, eta=res.eta)
+            f"(Q is {b.Q.ndim}-d); for a single sequence add a B=1 axis")
+    T, Bn = b.Q.shape[:2]
+    check_block_shapes(spec, b, lead=(T, Bn))
+    plan = PackPlan(batched=True, batch=Bn, K=spec.knot_points,
+                    s=spec.state_size, c=spec.control_size,
+                    dtype=b.Q.dtype.name)
+    return PackedKKTSequence(*jax.device_put(tuple(b)), plan=plan)
 
 
 def solve_packed_sequence(
@@ -803,55 +301,31 @@ def solve_packed_sequence(
     options: SolverOptions = SolverOptions(),
     lam0: Optional[jnp.ndarray] = None,
 ) -> PackedSequenceResult:
-    """Run the whole warm-started farm window from pre-packed inputs.
+    """Run the whole warm-started farm window from staged inputs.
 
-    Semantics of mpc.solve_sequence_batched on the fused tier (one Pallas
-    kernel over a (T, n_groups) grid, lambda carried in VMEM between
-    steps), minus the per-call relayouts.  ``lam0``: a packed
-    ``(n_groups, sp, L)`` carry (a previous window's ``lam_tail_packed`` —
-    zero relayout), a public ``(B, K, s)`` array, or None (cold start).
-    As with solve_packed, a supplied ``lam0`` is used unconditionally —
-    chaining windows is the point of this API."""
+    Semantics of mpc.solve_sequence_batched (one scan over T, every step a
+    batched PCG solve warm-started from the previous step).  ``lam0``: a
+    previous window's ``lam_tail_packed`` ``(B, K, s)``, or None (cold
+    start); a supplied ``lam0`` is used unconditionally — chaining windows
+    is the point of this API."""
+    from .mpc import _solve_sequence_batched_core
+    from .solver import resolve_backend
+
     plan = packed.plan
     if options.method != "pcg":
         raise ValueError(
             "solve_packed_sequence is the warm-started PCG farm; "
             "method='direct' sequences fold into one batch (pack + "
             "solve_packed on the folded batch)")
-    if jnp.dtype(options.dtype) != jnp.float32:
-        raise ValueError(
-            "solve_packed_sequence runs float32-only Mosaic kernels; "
-            f"dtype={options.dtype!r} needs mpc.solve_sequence_batched")
-    if options.preconditioner.value not in (
-            "symmetric_stair", "block_jacobi", "jacobi"):
-        raise ValueError(
-            f"unknown preconditioner {options.preconditioner!r}")
-    dt = jnp.float32
-    if lam0 is None:
-        lb = _cached_const(0, dt, (plan.n_groups, plan.sp, plan.L))
-    else:
-        lam0 = jnp.asarray(lam0, dt)
-        public = (plan.batch, plan.K, plan.s)
-        if lam0.shape == (plan.n_groups, plan.sp, plan.L):
-            lb = lam0
-        elif lam0.shape == public:
-            from .kernels.fused_solve import _pack_vec
-
-            lb = _pack_vec(lam0, K_sub=plan.K_sub, g=plan.g, L=plan.L,
-                           n_groups=plan.n_groups, sp=plan.sp)
-        else:
-            raise ValueError(
-                f"lam0 shape {lam0.shape} is neither the packed carry "
-                f"{(plan.n_groups, plan.sp, plan.L)} nor the public "
-                f"{public}")
-    return _solve_packed_sequence(
-        packed.Qb, packed.Rb, packed.Ab, packed.Bb,
-        packed.qb, packed.rb, packed.cb, lb,
-        _cached_const(options.rho, dt),
+    _check_options(options, plan, "solve_packed_sequence")
+    spec = ProblemSpec(plan.s, plan.c, plan.K)
+    backend = resolve_backend(None, options, spec)
+    dt = plan.dtype
+    res = _solve_sequence_batched_core(
+        *packed.blocks(), _packed_lam0(lam0, plan),
+        _cached_const(options.rho, dt, (packed.T,)),
         _cached_const(options.exit_tol, dt),
         _cached_const(options.max_iters, jnp.int32),
-        plan=plan, precond=options.preconditioner.value,
-        poly_degree=options.precond_poly_degree,
-        interpret=jax.default_backend() != "tpu",
-        unroll=4 if plan.g == 1 else 1,
+        options.preconditioner, backend, options.precond_poly_degree,
     )
+    return PackedSequenceResult(*res, plan=plan)

@@ -5,8 +5,8 @@ barriers between phases and atomicAdd all-reduces for the dot products
 (``parallelPCG``/``parallelPCG_fixed``, gato_pcg.cuh:17-470).  Both kernel
 variants (shared-mem-resident vs HBM-restreamed) collapse here into one
 ``lax.while_loop`` over whole-trajectory arrays: XLA's dataflow supplies every
-barrier, ``jnp.vdot`` is the all-reduce, and VMEM residency is the compiler's
-problem (or the fused Pallas kernel's, see kernels/pcg_pallas.py).
+barrier and ``jnp.vdot`` is the all-reduce.  kernels/pcg_triton.py runs the
+same iteration as one Pallas program per problem.
 
 Algorithm (identical to gato_pcg.cuh:272-439, modulo the global sign flip
 documented in assemble.py):
@@ -77,9 +77,9 @@ def pcg(
 
     ``matvec``/``dot`` are injection points for distributed execution: the
     knot-sharded path (parallel/sharded.py) passes a ppermute-halo matvec and a
-    psum-reducing dot, turning this same loop into a multi-chip solver — the
-    TPU-native analog of the reference's cooperative-kernel barriers and
-    atomicAdd all-reduces.
+    psum-reducing dot, turning this same loop into a multi-device solver —
+    the analog of the reference's cooperative-kernel barriers and atomicAdd
+    all-reduces.
 
     ``poly_degree`` composes the preconditioner polynomially (see
     SolverOptions.precond_poly_degree):  M_d r = P sum_{i<d} (I - S P)^i r,

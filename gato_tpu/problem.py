@@ -2,8 +2,8 @@
 
 The reference (MiloniAtal/gato-python) bakes the problem shape into the binary as
 compile-time constants (``-DSTATE_SIZE -DCONTROL_SIZE -DKNOT_POINTS``, see
-/root/reference/CMakeLists.txt:18, install.bash:6,16); a shape change is a full
-``nvcc`` rebuild.  On TPU the shape is a static argument of ``jax.jit`` — a shape
+CMakeLists.txt:18, install.bash:6,16); a shape change is a full
+``nvcc`` rebuild.  Here the shape is a static argument of ``jax.jit`` — a shape
 change is a retrace, not a rebuild (reference: include/gato_defines.h:32-37 derives
 all buffer sizes from those three constants; here :class:`ProblemSpec` plays that
 role and is hashable so it can be a ``static_argnums`` jit argument).
@@ -41,7 +41,7 @@ class Preconditioner(enum.Enum):
 
 @dataclasses.dataclass(frozen=True)
 class ProblemSpec:
-    """Static trajectory-QP shape: the TPU analog of the reference's #defines.
+    """Static trajectory-QP shape: the analog of the reference's #defines.
 
     Attributes:
       state_size:   per-knot state dimension (reference ``STATE_SIZE``).
@@ -141,8 +141,8 @@ class SolverOptions:
             raise ValueError(f"method must be 'pcg' or 'direct', got "
                              f"{self.method!r}")
         if not isinstance(self.preconditioner, Preconditioner):
-            # Accept the enum's string values too — the kernel-level APIs
-            # (solve_fused_batched etc.) take exactly these strings, so
+            # Accept the enum's string values too — the dp APIs
+            # (parallel.sharded) take exactly these strings, so
             # SolverOptions(preconditioner='symmetric_stair') is a natural
             # spelling; an unknown name raises here (clear, at construction)
             # instead of as an AttributeError deep in the solve.

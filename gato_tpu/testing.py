@@ -148,3 +148,64 @@ def dense_oracle(spec: ProblemSpec, blocks: KKTBlocks, rho: float = 0.0):
     dz = x[: spec.nz]
     lam = x[spec.nz :]
     return lam, dz
+
+
+def kkt_sparse(spec: ProblemSpec, blocks: KKTBlocks, rho: float = 0.0):
+    """The saddle-point matrix of :func:`formats.blocks_to_dense_kkt` as a
+    float64 ``scipy.sparse`` CSC matrix, with its rhs — for horizons where
+    the dense matrix does not fit (K=1024 at the IIWA width is already
+    ~10 GB dense)."""
+    import scipy.sparse as sp
+
+    s, c, K = spec.state_size, spec.control_size, spec.knot_points
+    sc = s + c
+    nz, nl = spec.nz, spec.nl
+    Q = np.asarray(blocks.Q, np.float64) + rho * np.eye(s)
+    R = np.asarray(blocks.R, np.float64) + rho * np.eye(c)
+    rows, cols, vals = [], [], []
+
+    def put(r0, c0, M):
+        """Scatter a stack of blocks M (n, a, b) at offsets r0/c0 (n,)."""
+        n, a, b = M.shape
+        ii, jj = np.meshgrid(np.arange(a), np.arange(b), indexing="ij")
+        rows.append((r0[:, None, None] + ii).ravel())
+        cols.append((c0[:, None, None] + jj).ravel())
+        vals.append(M.ravel())
+
+    k = np.arange(K)
+    ki = np.arange(K - 1)
+    put(k * sc, k * sc, Q)                                   # G: Q blocks
+    put(ki * sc + s, ki * sc + s, R)                         # G: R blocks
+    eye_s = np.broadcast_to(np.eye(s), (K, s, s))
+    Cr = nz + (ki + 1) * s                                   # C rows, k >= 1
+    put(np.array([nz]), np.array([0]), eye_s[:1])            # C: x_0 = ...
+    put(Cr, ki * sc, np.asarray(blocks.A, np.float64))
+    put(Cr, ki * sc + s, np.asarray(blocks.B, np.float64))
+    put(Cr, (ki + 1) * sc, eye_s[1:])
+    # C^T blocks: the transposes, mirrored across the diagonal.
+    put(np.array([0]), np.array([nz]), eye_s[:1])
+    put(ki * sc, Cr, np.swapaxes(np.asarray(blocks.A, np.float64), 1, 2))
+    put(ki * sc + s, Cr, np.swapaxes(np.asarray(blocks.B, np.float64), 1, 2))
+    put((ki + 1) * sc, Cr, eye_s[1:])
+    n = nz + nl
+    KKT = sp.csc_matrix((np.concatenate(vals),
+                         (np.concatenate(rows), np.concatenate(cols))),
+                        shape=(n, n))
+    g = np.zeros(nz)
+    g_knots = g[: (K - 1) * sc].reshape(K - 1, sc)   # a view into g
+    g_knots[:, :s] = np.asarray(blocks.q, np.float64)[:-1]
+    g_knots[:, s:] = np.asarray(blocks.r, np.float64)
+    g[(K - 1) * sc:] = np.asarray(blocks.q, np.float64)[-1]
+    rhs = np.concatenate([g, np.asarray(blocks.c, np.float64).reshape(-1)])
+    return KKT, rhs
+
+
+def sparse_oracle(spec: ProblemSpec, blocks: KKTBlocks, rho: float = 0.0):
+    """:func:`dense_oracle` for long horizons: the same saddle system, built
+    sparse (:func:`kkt_sparse`) and solved exactly by scipy's sparse LU in
+    float64."""
+    from scipy.sparse.linalg import spsolve
+
+    KKT, rhs = kkt_sparse(spec, blocks, rho=rho)
+    x = spsolve(KKT, rhs)
+    return x[spec.nz:], x[: spec.nz]

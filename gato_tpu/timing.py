@@ -1,26 +1,23 @@
-"""Trustworthy device timing for solver workloads.
+"""Device timing for solver workloads.
 
-Library form of the benchmark methodology bench.py uses (the TPU analog of
-the reference's cudaEvent testiters loop, gpu_library.cu:166-198), exposed so
-users can measure THEIR problems without rediscovering the traps of remote-
-attached accelerators:
+Library form of the benchmark methodology bench.py uses (the analog of the
+reference's cudaEvent testiters loop, gpu_library.cu:166-198), exposed so
+users can measure THEIR problems without the usual traps:
 
-* runtimes serve repeat executions of bit-identical program+inputs from a
-  cache (under-reporting by >100x);
-* ``jax.block_until_ready`` can return before device execution completes on
-  some transports — the only reliable fence is fetching a scalar reduction
-  of the result;
-* a single dispatch round trip can cost ~30 ms, dwarfing a ~20 us solve;
+* JAX dispatch is asynchronous — a timing that does not wait for the result
+  (``jax.block_until_ready``) measures the enqueue, not the solve;
+* a fixed per-call cost (dispatch, launch, the loop predicate's read-back)
+  can dwarf a small solve, so a single call says little about throughput;
 * XLA hoists loop-invariant work (e.g. the whole condensation when only the
   rhs changes per step) out of timing loops, silently under-reporting any
   path it can see into.
 
-:func:`chain_time` answers all four at once: it times a chain of T solves
+:func:`chain_time` answers all three at once: it times a chain of T solves
 INSIDE one jitted ``lax.scan`` whose per-step problem data is perturbed
-(breaking both the execution cache and invariant hoisting), fences with a
-scalar fetch, and differences two chain lengths (T vs 2T) so the transport
-cost cancels exactly.  :func:`time_solve` wraps it for one (spec, blocks,
-options) at the public solver surface.
+(breaking invariant hoisting), waits for the result with
+``block_until_ready``, and differences two chain lengths (T vs 2T) so the
+fixed per-call cost cancels exactly.  :func:`time_solve` wraps it for one
+(spec, blocks, options) at the public solver surface.
 """
 
 from __future__ import annotations
@@ -37,23 +34,10 @@ from .formats import KKTBlocks
 from .problem import ProblemSpec, SolverOptions
 
 
-def measure_rtt_ms(reps: int = 10) -> float:
-    """Transport round trip: median time to fetch a 4-byte result."""
-    f = jax.jit(lambda x: jnp.sum(x))
-    float(f(jnp.ones((8, 128))))
-    ts = []
-    for i in range(reps):
-        x = jnp.full((8, 128), float(i + 1))
-        t0 = time.perf_counter()
-        float(f(x))
-        ts.append(time.perf_counter() - t0)
-    return float(np.median(ts)) * 1e3
-
-
 def _chain_fn(step_fn, q0, length):
     """One jitted scan of ``length`` chained cold solves.
 
-    step_fn(q0, lam_carry, t) -> array whose sum fences the whole step."""
+    step_fn(q0, lam_carry, t) -> array that data-depends on the whole step."""
 
     @jax.jit
     def chain(q):
@@ -64,7 +48,7 @@ def _chain_fn(step_fn, q0, length):
         out, _ = jax.lax.scan(
             body, jnp.zeros_like(q0), jnp.arange(length, dtype=jnp.float32)
         )
-        return jnp.sum(out)
+        return out
 
     return chain
 
@@ -72,14 +56,14 @@ def _chain_fn(step_fn, q0, length):
 def _timed(chain, q0, rep):
     q = q0 * (1.0 + 1e-6 * (rep + 1))
     t0 = time.perf_counter()
-    float(chain(q))  # scalar fetch = the only reliable fence here
+    jax.block_until_ready(chain(q))
     return (time.perf_counter() - t0) * 1e3
 
 
 def _best_cluster(estimates, n):
     """Median and range of the tightest window of ``n`` consecutive sorted
-    estimates — a one-off transient (transport hiccup, chip contention) lands
-    far from the cluster and is excluded instead of polluting a plain
+    estimates — a one-off transient (host preemption, device contention)
+    lands far from the cluster and is excluded instead of polluting a plain
     median/spread over everything."""
     xs = sorted(estimates)
     n = min(n, len(xs))
@@ -108,21 +92,21 @@ def chain_time(step_fn, q0, T: int, reps: int = 7, n_independent: int = 2,
       territory), T is doubled — up to three times — and the measurement
       redone;
     * if the estimates disagree by more than ``rel_spread`` of their value
-      (a transient: the remote transport occasionally stalls one rep by
-      10-100x), up to ``max_extra`` further independent estimates are taken
+      (a transient stall of one rep), up to ``max_extra`` further
+      independent estimates are taken
       and the tightest ``n_independent``-wide cluster is reported, so a
       one-off glitch is excluded rather than averaged in."""
     for attempt in range(4):
         c1 = _chain_fn(step_fn, q0, T)
         c2 = _chain_fn(step_fn, q0, 2 * T)
         t0 = time.perf_counter()
-        float(c1(q0))  # compile + first run
+        jax.block_until_ready(c1(q0))  # compile + first run
         # Reference protocol (BASELINE.md): report the first run INCLUDING
         # compile alongside the steady-state average.  Re-captured on every
         # attempt (each T doubling builds and compiles fresh chains) so the
         # reported value is the FINAL T's chain, the one info['T'] names.
         first_call_ms = (time.perf_counter() - t0) * 1e3
-        float(c2(q0))
+        jax.block_until_ready(c2(q0))
         estimates = []
         diffs = []
 
@@ -131,7 +115,7 @@ def chain_time(step_fn, q0, T: int, reps: int = 7, n_independent: int = 2,
             t2 = float(np.median([_timed(c2, q0, 10 * k + r) for r in range(reps)]))
             d = t2 - t1
             diffs.append(d)
-            # A transport stall during either chain can drive the difference
+            # A stall during either chain can drive the difference
             # non-positive.  Such a measurement carries no signal; clamping
             # it to a floor would let TWO stalls form a fake zero-spread
             # "tightest cluster" of identical floor values that sails through
@@ -213,19 +197,17 @@ def time_solve(
     plus the measurement detail.  ``blocks`` may carry a leading batch axis
     (then solve_batched semantics apply and avg_ms is per BATCH; divide by
     the batch size for per-solve)."""
-    from .solver import _resolve_backend, _solve_batched_core, _solve_core
+    from .solver import _solve_batched_core, _solve_core, resolve_backend
 
     dtype = jnp.dtype(options.dtype)
     b = KKTBlocks(*(jax.device_put(jnp.asarray(a, dtype=dtype))
                     for a in blocks))
     batched = b.Q.ndim == 4
-    backend = _resolve_backend(pcg_backend, options, batched=batched,
-                               spec=spec,
-                               batch=b.Q.shape[0] if batched else None)
+    backend = resolve_backend(pcg_backend, options, spec)
     core = functools.partial(
         (_solve_batched_core if batched else _solve_core).__wrapped__,
         preconditioner=options.preconditioner,
-        pcg_backend=backend,
+        backend=backend,
         method=options.method,
         poly_degree=options.precond_poly_degree,
     )
@@ -233,7 +215,7 @@ def time_solve(
     tol = jnp.asarray(options.exit_tol, dtype)
     mi = jnp.asarray(options.max_iters, jnp.int32)
     zero_lam = jnp.zeros_like(b.q)
-    float(jnp.sum(b.q))  # fence staging
+    jax.block_until_ready(b)
 
     def step(q0, lam_carry, t):
         Q, q = perturb(b, q0, lam_carry, t)

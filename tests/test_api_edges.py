@@ -92,9 +92,9 @@ def test_ill_conditioned_direct_robust():
 
 
 def test_import_keeps_kernels_lazy():
-    """`import gato_tpu` must not import the Pallas kernel modules: every
-    dispatch site (solver, mpc, diff, packed) lazy-imports them so the
-    pure-XLA/f64 paths keep working where Mosaic/Pallas cannot import.
+    """`import gato_tpu` must not import the Pallas kernel modules: the
+    one dispatch site (solver._pcg_batched) lazy-imports them so the
+    pure-XLA/f64 paths keep working where Pallas cannot import.
     Run in a subprocess — this suite's process has long since loaded them."""
     import subprocess
     import sys
@@ -113,16 +113,15 @@ def test_import_keeps_kernels_lazy():
 
 
 def test_malformed_blocks_rejected_on_every_backend():
-    """The kernel paths zero-pad whatever they are given (_pack_vec), so a
-    malformed field must be rejected at the surface — previously only the
-    'jax' path errored (via broadcasting) while 'fused' returned a wrong
-    solution silently."""
+    """The kernel path zero-pads whatever it is given (pcg_triton pads to
+    its tiles), so a malformed field must be rejected at the surface,
+    before any backend is chosen."""
     from gato_tpu.solver import solve_batched
 
     spec = ProblemSpec(2, 1, 5)
     blocks = random_blocks(spec, seed=3)
     bad = blocks._replace(c=np.asarray(blocks.c)[:-1])  # (K-1, s) slip
-    for be in ("jax", "pallas", "fused"):
+    for be in ("jax", "triton"):
         with pytest.raises(ValueError, match="blocks.c shape"):
             solve(spec, bad, SolverOptions(), pcg_backend=be)
     with pytest.raises(ValueError, match="leading batch axis"):

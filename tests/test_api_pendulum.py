@@ -1,7 +1,7 @@
 """The reference's end-to-end integration test, ported verbatim.
 
 Same CSR data, same solver arguments, same dense NumPy saddle-point oracle,
-same tolerances (rtol=1, atol=0.01) as /root/reference/test_pendulum_5.py.
+same tolerances (rtol=1, atol=0.01) as the reference's test_pendulum_5.py.
 This is the parity gate.
 """
 
@@ -44,14 +44,15 @@ def test_pendulum_linsys_solve_matches_reference_oracle(capsys):
     assert "avg time:" in out
 
 
-def test_pendulum_linsys_solve_fused_backend():
-    """The reference e2e flow through the fused whole-solve kernel (the TPU
-    default backend; interpret mode here) — same oracle, same tolerances."""
+def test_pendulum_linsys_solve_triton_backend(as_h100):
+    """The reference e2e flow through the Triton PCG kernel (the H100's
+    default at this horizon; interpreted here) — same oracle, same
+    tolerances."""
     p = pendulum_problem()
     l, dz = gato_tpu.linsys_solve(
         p.G_row, p.G_col, p.G_val, p.C_row, p.C_col, p.C_val,
         p.g, p.c, [0.0] * 10, 1, 1e-6, 10, False, 0.001,
-        pcg_backend="fused", verbose=False,
+        verbose=False,
     )
     l_ref, dz_ref = gato_tpu.linsys_solve(
         p.G_row, p.G_col, p.G_val, p.C_row, p.C_col, p.C_val,

@@ -1,218 +1,119 @@
-"""Backend selection/validation and the long-horizon VMEM fallback.
+"""Backend choice (dispatch.choose_backend) and request validation.
 
 The reference selects its PCG kernel explicitly and exits rather than
 silently degrading (check_sms, gato_utils.cuh:836-854); these tests pin the
-same contract here: unknown or option-incompatible explicit backends raise,
-and horizons too long for kernel residency auto-fall back to 'jax'.
+same contract here: unknown or platform-incompatible explicit backends raise,
+and automatic choices follow the table of measured devices.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gato_tpu import ProblemSpec, SolverOptions
-from gato_tpu.mpc import solve_sequence
-from gato_tpu.problem import Preconditioner
+from gato_tpu import ProblemSpec, SolverOptions, dispatch
 from gato_tpu.formats import KKTBlocks
-from gato_tpu.solver import (
-    VALID_PCG_BACKENDS,
-    _resolve_backend,
-    solve,
-    solve_batched,
-)
+from gato_tpu.mpc import solve_sequence, solve_sequence_batched
+from gato_tpu.solver import VALID_PCG_BACKENDS, solve, solve_batched
 from gato_tpu.testing import random_blocks
 
 SPEC = ProblemSpec(3, 2, 8)
 OPTS = SolverOptions(rho=0.01, exit_tol=1e-8, max_iters=200)
+H100 = ("gpu", "NVIDIA H100 80GB HBM3")
+CPU = ("cpu", "cpu")
+OTHER_GPU = ("gpu", "NVIDIA A100-SXM4-80GB")
 
 
 def _blocks(seed=0):
     return random_blocks(SPEC, seed=seed)
 
 
-def test_unknown_backend_raises():
-    with pytest.raises(ValueError, match="unknown pcg_backend"):
-        solve(SPEC, _blocks(), OPTS, pcg_backend="fast")
-    with pytest.raises(ValueError, match="unknown pcg_backend"):
-        solve(SPEC, _blocks(), OPTS, pcg_backend="PALLAS")
+def _lead(blocks, *lead):
+    return KKTBlocks(*(np.broadcast_to(np.asarray(a), lead + np.shape(a))
+                       for a in blocks))
 
 
-def test_unknown_backend_raises_batched():
-    b = KKTBlocks(*(np.stack([np.asarray(a)] * 2) for a in _blocks()))
-    with pytest.raises(ValueError, match="unknown pcg_backend"):
-        solve_batched(SPEC, b, OPTS, pcg_backend="fsued")
+# (device, method, requested, dtype, K, poly_degree) -> backend
+TABLE = [
+    (CPU, "pcg", None, "float32", 50, 1, "jax"),
+    (CPU, "pcg", "jax", "float32", 50, 1, "jax"),
+    (CPU, "direct", None, "float32", 50, 1, "thomas"),
+    (CPU, "direct", "jax", "float64", 4096, 1, "thomas"),
+    (H100, "pcg", None, "float32", 50, 1, "triton"),
+    (H100, "pcg", None, "float32", 128, 1, "triton"),
+    (H100, "pcg", None, "float32", 129, 1, "jax"),
+    (H100, "pcg", None, "float32", 1024, 1, "jax"),
+    (H100, "pcg", None, "float32", 50, 2, "triton"),
+    (H100, "pcg", None, "float32", 51, 2, "jax"),
+    (H100, "pcg", None, "float32", 128, 2, "jax"),
+    (H100, "pcg", None, "float32", 50, 3, "jax"),
+    (H100, "pcg", "triton", "float32", 128, 3, "triton"),
+    (H100, "pcg", None, "float64", 50, 1, "jax"),
+    (H100, "pcg", "jax", "float32", 50, 1, "jax"),
+    (H100, "pcg", "triton", "float32", 4096, 1, "triton"),
+    (H100, "direct", None, "float32", 50, 1, "cr"),
+    (H100, "direct", None, "float32", 4096, 2, "cr"),
+    (H100, "direct", "jax", "float64", 50, 1, "cr"),
+    (OTHER_GPU, "pcg", None, "float32", 50, 1, "jax"),
+    (OTHER_GPU, "pcg", "triton", "float32", 50, 1, "triton"),
+    (OTHER_GPU, "direct", None, "float32", 50, 1, "thomas"),
+]
 
 
-@pytest.mark.parametrize("precond", [
-    Preconditioner.SYMMETRIC_STAIR,
-    Preconditioner.BLOCK_JACOBI,
-    Preconditioner.JACOBI,
+@pytest.mark.parametrize("device,method,requested,dtype,K,degree,want",
+                         TABLE)
+def test_choice_table(device, method, requested, dtype, K, degree, want):
+    got = dispatch.choose_backend(method, requested, dtype=dtype, K=K,
+                                  poly_degree=degree, device=device)
+    assert got == want
+
+
+@pytest.mark.parametrize("device,method,requested,dtype,match", [
+    (CPU, "pcg", "triton", "float32", "CUDA GPU only"),
+    (H100, "pcg", "triton", "float64", "float32 kernel"),
+    (H100, "direct", "triton", "float32", "method='direct'"),
+    (H100, "pcg", "fused", "float32", "unknown pcg_backend"),
+    (H100, "pcg", "pallas", "float32", "unknown pcg_backend"),
+    (CPU, "thomas", None, "float32", "unknown method"),
 ])
-def test_fused_all_preconditioners(precond):
-    """The fused kernel assembles all three of the reference's preconditioner
-    options in-kernel (gato_defines.h:9-11) — exact iteration parity with the
-    jax oracle for each."""
-    opts = SolverOptions(rho=0.01, exit_tol=1e-8, max_iters=300,
-                         preconditioner=precond)
-    blocks = _blocks(seed=4)
-    ref = solve(SPEC, blocks, opts, pcg_backend="jax")
-    got = solve(SPEC, blocks, opts, pcg_backend="fused")
-    assert int(got.iters) == int(ref.iters), precond
-    assert bool(got.converged)
-    np.testing.assert_allclose(np.asarray(got.lam), np.asarray(ref.lam),
-                               rtol=1e-4, atol=1e-4)
+def test_choice_rejects(device, method, requested, dtype, match):
+    with pytest.raises(ValueError, match=match):
+        dispatch.choose_backend(method, requested, dtype=dtype, K=8,
+                                device=device)
 
 
-def test_direct_pallas_is_the_longk_tier():
-    """'pallas' + method='direct' is the long-horizon cyclic-reduction
-    ladder: the one-kernel CR within its VMEM reach, the lane-packed XLA CR
-    beyond — valid at any K, agreeing with the XLA path."""
-    opts = SolverOptions(rho=0.01, method="direct")
-    ref = solve(SPEC, _blocks(), opts, pcg_backend="jax")
-    got = solve(SPEC, _blocks(), opts, pcg_backend="pallas")
-    np.testing.assert_allclose(np.asarray(got.lam), np.asarray(ref.lam),
-                               rtol=1e-4, atol=1e-5)
-    assert int(got.iters) == 0 and bool(got.converged)
-    # Past the direct-XL VMEM reach the explicit request stays valid (the
-    # 'xla' tier of longk.direct_tier owns it).
-    assert _resolve_backend("pallas", opts, batched=False,
-                            spec=ProblemSpec(14, 7, 4096)) == "pallas"
+def test_current_device_reads_default_device():
+    import jax
+
+    d = jax.devices()[0]
+    assert dispatch.current_device() == (d.platform, d.device_kind)
 
 
-def test_sequence_rejects_unknown():
-    seq = KKTBlocks(*(jnp.broadcast_to(jnp.asarray(a), (3,) + a.shape)
-                      for a in _blocks()))
-    with pytest.raises(ValueError, match="solve_sequence supports"):
-        solve_sequence(SPEC, seq, OPTS, pcg_backend="nope")
+@pytest.mark.parametrize("entry", ["solve", "solve_batched", "solve_sequence",
+                                   "solve_sequence_batched"])
+def test_explicit_kernel_raises_on_cpu(entry):
+    """An explicit kernel request this platform cannot compile raises — it
+    is never run in the interpreter instead."""
+    fn, lead = {"solve": (solve, ()), "solve_batched": (solve_batched, (2,)),
+                "solve_sequence": (solve_sequence, (3,)),
+                "solve_sequence_batched": (solve_sequence_batched,
+                                           (3, 2))}[entry]
+    with pytest.raises(ValueError, match="CUDA GPU only"):
+        fn(SPEC, _lead(_blocks(), *lead), OPTS, pcg_backend="triton")
 
 
-def test_sequence_fused_block_jacobi():
-    """Non-default preconditioner through the fused sequence path."""
-    seq = KKTBlocks(*(jnp.broadcast_to(jnp.asarray(a), (3,) + a.shape)
-                      for a in _blocks()))
-    bj = SolverOptions(rho=0.01, exit_tol=1e-8, max_iters=200,
-                       preconditioner=Preconditioner.BLOCK_JACOBI)
-    ref = solve_sequence(SPEC, seq, bj, pcg_backend="jax")
-    got = solve_sequence(SPEC, seq, bj, pcg_backend="fused")
-    np.testing.assert_array_equal(np.asarray(got.iters), np.asarray(ref.iters))
-    np.testing.assert_allclose(np.asarray(got.lam), np.asarray(ref.lam),
-                               rtol=1e-4, atol=1e-4)
-
-
-def test_sequence_honors_fused():
-    """Per-step fused whole-solve kernel in the scan, warm-started from the
-    carry: iteration counts must match the jax path exactly."""
-    seq = KKTBlocks(*(jnp.broadcast_to(jnp.asarray(a), (4,) + a.shape)
-                      for a in _blocks()))
-    opts = SolverOptions(rho=0.01, exit_tol=1e-8, max_iters=60)
-    ref = solve_sequence(SPEC, seq, opts, pcg_backend="jax")
-    got = solve_sequence(SPEC, seq, opts, pcg_backend="fused")
-    np.testing.assert_array_equal(np.asarray(got.iters), np.asarray(ref.iters))
-    np.testing.assert_allclose(np.asarray(got.lam), np.asarray(ref.lam),
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(got.dz_u), np.asarray(ref.dz_u),
-                               rtol=1e-4, atol=1e-4)
-
-
-def test_sequence_honors_pallas():
-    """Explicit 'pallas' inside the scan: exact iteration parity with 'jax'."""
-    seq = KKTBlocks(*(jnp.broadcast_to(jnp.asarray(a), (3,) + a.shape)
-                      for a in _blocks()))
-    opts = SolverOptions(rho=0.01, exit_tol=1e-8, max_iters=60)
-    ref = solve_sequence(SPEC, seq, opts, pcg_backend="jax")
-    got = solve_sequence(SPEC, seq, opts, pcg_backend="pallas")
-    np.testing.assert_array_equal(np.asarray(got.iters), np.asarray(ref.iters))
-    np.testing.assert_allclose(np.asarray(got.lam), np.asarray(ref.lam),
-                               rtol=1e-4, atol=1e-5)
-
-
-def test_single_problem_fused_matches_jax():
-    """pcg_backend='fused' on one problem (interpret on CPU): exact iteration
-    parity and matching solutions vs the numerics oracle."""
-    blocks = _blocks(seed=3)
-    ref = solve(SPEC, blocks, OPTS, pcg_backend="jax")
-    got = solve(SPEC, blocks, OPTS, pcg_backend="fused")
-    assert int(got.iters) == int(ref.iters)
-    assert bool(got.converged)
-    np.testing.assert_allclose(np.asarray(got.lam), np.asarray(ref.lam),
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(got.dz_x), np.asarray(ref.dz_x),
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(got.dz_u), np.asarray(ref.dz_u),
-                               rtol=1e-4, atol=1e-5)
-
-
-def test_vmem_budget_decisions_on_long_horizon():
-    """IIWA-width K=4096 exceeds the VMEM lane budget: the resident kernels
-    must refuse it loudly, and fits_vmem must gate the dispatch (the
-    check_sms analog, gato_utils.cuh:829-854)."""
-    from gato_tpu.kernels import fused_solve, pcg_pallas
-
-    assert not fused_solve.fits_vmem(4096, 14, 7)
-    assert not pcg_pallas.fits_vmem(4096, 14)
-    assert fused_solve.fits_vmem(500, 14, 7)
-    with pytest.raises(ValueError, match="VMEM"):
-        fused_solve.plan_packing(1, 4096, 14, 7)
-    with pytest.raises(ValueError, match="VMEM"):
-        pcg_pallas.plan_packing(1, 8192, 14)
-    # On this (CPU) test platform auto-selection is always 'jax'; the
-    # TPU-side long-horizon auto choice ('pallas' -> streamed) is asserted
-    # structurally: the streamed module exists and handles the shape.
-    assert _resolve_backend(None, OPTS, batched=False,
-                            spec=ProblemSpec(14, 7, 4096)) == "jax"
-
-
-def test_streamed_matvec_matches_btd():
-    from gato_tpu.blocktri import btd_matvec
-    from gato_tpu.kernels import pcg_streamed as ps
-    from gato_tpu import assemble
-    from gato_tpu.problem import Preconditioner
-
-    spec = ProblemSpec(6, 3, 300)
-    b = random_blocks(spec, seed=5)
-    sys = assemble.condense(*(jnp.asarray(a) for a in b), jnp.float32(1e-2),
-                            Preconditioner.SYMMETRIC_STAIR)
-    x = jnp.asarray(np.random.default_rng(0).normal(
-        size=(spec.knot_points, spec.state_size)).astype(np.float32))
-    ref = btd_matvec(sys.S, x)
-    K_pad, Lc, n_chunks, sp = ps.plan_chunks(spec.knot_points,
-                                             spec.state_size)
-    # Force several chunks so the halo patching is exercised.
-    Lc, n_chunks = 128, K_pad // 128
-    Sp = ps._pack_operator(sys.S, K_pad, sp)
-    xp = ps._pack_vec(x, K_pad, sp)
-    got = ps.streamed_matvec(Sp, xp, s=spec.state_size, Lc=Lc,
-                             n_chunks=n_chunks, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(got[: spec.state_size, : spec.knot_points].T),
-        np.asarray(ref), rtol=1e-5, atol=1e-5)
-
-
-@pytest.mark.slow
-def test_long_horizon_streamed_parity_and_fallback():
-    """GENUINE K=1024 through the long-horizon kernel tier (kernels/longk.py)
-    with exact iteration parity vs the 'jax' oracle (interpret mode: minutes;
-    the same path runs compiled on real TPU in bench.py every round, and
-    test_longk_dispatch_small_forced covers the dispatch logic fast)."""
-    from gato_tpu.kernels import pcg_pallas
-
-    spec = ProblemSpec(14, 7, 1024)
-    assert not pcg_pallas.fits_vmem(spec.knot_points, spec.state_size)
-    blocks = random_blocks(spec, seed=1)
-    opts = SolverOptions(rho=0.01, exit_tol=1e-6, max_iters=300)
-    ref = solve(spec, blocks, opts, pcg_backend="jax")
-    got = solve(spec, blocks, opts, pcg_backend="pallas")  # -> streamed
-    assert bool(ref.converged) and bool(got.converged)
-    assert int(got.iters) == int(ref.iters)
-    np.testing.assert_allclose(np.asarray(got.lam), np.asarray(ref.lam),
-                               rtol=1e-3, atol=1e-4)
-    auto = solve(spec, blocks, opts)  # auto backend on this platform
-    assert bool(auto.converged)
-    assert np.all(np.isfinite(np.asarray(auto.lam)))
+@pytest.mark.parametrize("entry,name", [("solve", "fast"),
+                                        ("solve", "PALLAS"),
+                                        ("solve_batched", "fsued"),
+                                        ("solve_sequence", "nope")])
+def test_unknown_backend_raises(entry, name):
+    fn, lead = {"solve": (solve, ()), "solve_batched": (solve_batched, (2,)),
+                "solve_sequence": (solve_sequence, (3,))}[entry]
+    with pytest.raises(ValueError, match="unknown pcg_backend"):
+        fn(SPEC, _lead(_blocks(), *lead), OPTS, pcg_backend=name)
 
 
 def test_valid_backends_are_exhaustive():
-    assert set(VALID_PCG_BACKENDS) == {"jax", "pallas", "fused"}
+    assert VALID_PCG_BACKENDS == ("jax", "triton")
 
 
 def test_options_validation():
@@ -222,40 +123,6 @@ def test_options_validation():
         SolverOptions(precond_poly_degree=-2)
     with pytest.raises(ValueError, match="method"):
         SolverOptions(method="thomas")
-
-
-def test_fits_vmem_no_minimum_lane_false_positive():
-    """A wide-state problem whose working set exceeds the budget even at one
-    128-lane tile must report as NOT fitting (it previously rounded up to a
-    block Mosaic cannot allocate)."""
-    from gato_tpu.kernels import fused_solve, pcg_pallas
-
-    # s=44, c=20: ~135 KB/lane -> 128 lanes is ~17 MB > the 13 MB budget.
-    assert not fused_solve.fits_vmem(64, 44, 20)
-    with pytest.raises(ValueError, match="VMEM"):
-        fused_solve.plan_packing(1, 64, 44, 20)
-    # The PCG-only kernel is lighter; compute its true budget boundary.
-    assert not pcg_pallas.fits_vmem(8, 120)
-    with pytest.raises(ValueError, match="VMEM"):
-        pcg_pallas.plan_packing(1, 8, 120)
-
-
-@pytest.mark.slow
-def test_sequence_pallas_streams_long_horizon():
-    """solve_sequence with 'pallas' past the VMEM budget must route to the
-    streamed kernel inside the scan (previously raised at trace time)."""
-    from gato_tpu.kernels import pcg_pallas
-
-    spec = ProblemSpec(14, 7, 1024)
-    assert not pcg_pallas.fits_vmem(spec.knot_points, spec.state_size)
-    seq = KKTBlocks(*(jnp.broadcast_to(jnp.asarray(a), (2,) + a.shape)
-                      for a in random_blocks(spec, seed=2)))
-    opts = SolverOptions(rho=0.01, exit_tol=1e-6, max_iters=200)
-    ref = solve_sequence(spec, seq, opts, pcg_backend="jax")
-    got = solve_sequence(spec, seq, opts, pcg_backend="pallas")
-    np.testing.assert_array_equal(np.asarray(got.iters), np.asarray(ref.iters))
-    np.testing.assert_allclose(np.asarray(got.lam), np.asarray(ref.lam),
-                               rtol=1e-3, atol=1e-4)
 
 
 def test_solve_debug_matches_solve_at_poly_degree_2():
@@ -271,87 +138,35 @@ def test_solve_debug_matches_solve_at_poly_degree_2():
                                rtol=1e-5, atol=1e-6)
 
 
-def test_explicit_kernel_backend_rejects_f64():
-    """Explicit 'fused'/'pallas' + non-f32 dtype must raise at the surface
-    (the Mosaic kernels are f32-only; auto-selection already routes f64 to
-    'jax') instead of dying later in an opaque Mosaic lowering error."""
-    from gato_tpu.mpc import solve_sequence, solve_sequence_batched
+@pytest.mark.parametrize("degree,want", [(1, "triton"), (2, "triton"),
+                                          (3, "jax")])
+def test_entry_points_forward_poly_degree(as_h100, monkeypatch, degree,
+                                          want):
+    """solve passes precond_poly_degree to the chooser: on an H100 at K=8
+    degrees 1 and 2 run the kernel, an unmeasured degree runs XLA."""
+    from gato_tpu import solver as solver_mod
+
+    seen = []
+    real = dispatch.choose_backend
+
+    def recorder(method, requested, **k):
+        seen.append(real(method, requested, **k))
+        return seen[-1]
+
+    monkeypatch.setattr(solver_mod, "choose_backend", recorder)
+    opts = SolverOptions(rho=0.01, exit_tol=1e-8, max_iters=200,
+                         precond_poly_degree=degree)
+    res = solve(SPEC, _blocks(seed=5), opts)
+    assert seen == [want]
+    assert bool(res.converged)
+
+
+def test_f64_runs_xla_on_h100(as_h100):
+    """float64 compute on a GPU takes the XLA path automatically."""
+    import jax
 
     spec = ProblemSpec(2, 1, 5)
-    blocks = random_blocks(spec, seed=3)
-    opts = SolverOptions(dtype="float64")
-    for be in ("fused", "pallas"):
-        with pytest.raises(ValueError, match="float32-only"):
-            solve(spec, blocks, opts, pcg_backend=be)
-    # Auto and explicit 'jax' still work.
-    import jax
     with jax.enable_x64(True):
-        assert solve(spec, blocks, opts).lam.dtype == jnp.float64
-
-    seq = KKTBlocks(*(np.broadcast_to(np.asarray(a), (3,) + np.shape(a))
-                      for a in blocks))
-    with pytest.raises(ValueError, match="float32-only"):
-        solve_sequence(spec, seq, opts, pcg_backend="fused")
-    seqb = KKTBlocks(*(np.broadcast_to(np.asarray(a), (3, 2) + np.shape(a))
-                       for a in blocks))
-    with pytest.raises(ValueError, match="float32-only"):
-        solve_sequence_batched(spec, seqb, opts, pcg_backend="pallas")
-
-
-def test_longk_dispatch_small_forced(monkeypatch):
-    """Solver-level long-horizon dispatch WITHOUT the K=1024 interpret cost:
-    shrink the resident budget so a small spec crosses the longk threshold,
-    then check explicit 'pallas' routes through kernels/longk.py with exact
-    iteration parity vs the oracle (the genuine-size equivalents carry
-    @slow; the compiled path runs on real TPU in bench.py every round)."""
-    from gato_tpu.kernels import longk, pcg_pallas
-
-    calls = {}
-    orig = longk.solve_longk
-
-    def spy(*a, **kw):
-        calls["longk"] = True
-        return orig(*a, **kw)
-
-    monkeypatch.setattr(longk, "solve_longk", spy)
-    monkeypatch.setattr(pcg_pallas, "fits_vmem", lambda K, s: False)
-    spec = ProblemSpec(3, 2, 40)
-    blocks = random_blocks(spec, seed=4)
-    opts = SolverOptions(rho=0.01, exit_tol=1e-8, max_iters=300)
-    ref = solve(spec, blocks, opts, pcg_backend="jax")
-    got = solve(spec, blocks, opts, pcg_backend="pallas")
-    assert calls.get("longk"), "dispatch did not reach the longk tier"
-    assert int(got.iters) == int(ref.iters)
-    np.testing.assert_allclose(np.asarray(got.lam), np.asarray(ref.lam),
-                               rtol=1e-3, atol=1e-4)
-
-
-def test_sequence_longk_dispatch_small_forced(monkeypatch):
-    """solve_sequence's long-horizon routing, at small size (the genuine
-    K=1024 sequence carries @slow).  The MPC core must reach the HOISTED
-    sequence entry point (inputs packed once before the scan, lambda carried
-    packed — longk.solve_longk_sequence_batched), not a per-step
-    solve_longk_batched that would repack every scan step."""
-    from gato_tpu.kernels import longk, pcg_pallas
-
-    calls = {}
-    orig = longk.solve_longk_sequence_batched
-
-    def spy(*a, **kw):
-        calls["longk_seq"] = True
-        return orig(*a, **kw)
-
-    monkeypatch.setattr(longk, "solve_longk_sequence_batched", spy)
-    monkeypatch.setattr(pcg_pallas, "fits_vmem", lambda K, s: False)
-    spec = ProblemSpec(3, 2, 48)
-    seq = KKTBlocks(*(jnp.broadcast_to(jnp.asarray(a), (2,) + a.shape)
-                      for a in random_blocks(spec, seed=6)))
-    opts = SolverOptions(rho=0.01, exit_tol=1e-8, max_iters=300)
-    ref = solve_sequence(spec, seq, opts, pcg_backend="jax")
-    got = solve_sequence(spec, seq, opts, pcg_backend="pallas")
-    assert calls.get("longk_seq"), (
-        "sequence did not reach the hoisted longk tier")
-    np.testing.assert_array_equal(np.asarray(got.iters),
-                                  np.asarray(ref.iters))
-    np.testing.assert_allclose(np.asarray(got.lam), np.asarray(ref.lam),
-                               rtol=1e-3, atol=1e-4)
+        res = solve(spec, random_blocks(spec, seed=3),
+                    SolverOptions(dtype="float64"))
+        assert res.lam.dtype == jnp.float64

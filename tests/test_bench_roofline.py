@@ -1,137 +1,104 @@
-"""bench.py roofline accounting: the analytic FLOP/byte model and the
-annotation logic (pure host math — no device work).  The model's job is to
-bucket configs into latency/bandwidth/compute-bound and report distance to
-the binding hardware limit (the measurement the reference's harness never
-had, gpu_library.cu:166-198), so the tests pin the invariants that make
-those buckets meaningful rather than exact constants."""
+"""bench.py: the peak table, the analytic work model and the roofline
+annotation (pure host math — no device work), and the refusal to measure
+anything but a GPU."""
 
-import numpy as np
+import json
 import sys
 from pathlib import Path
+
+import numpy as np
+import pytest
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import bench  # noqa: E402
-from gato_tpu.problem import ProblemSpec  # noqa: E402
+
+H100 = "NVIDIA H100 80GB HBM3"
+
+
+def test_peak_table_known_kind():
+    peak = bench.peak_for(H100)
+    assert peak["f32_flops"] == 67e12
+    assert peak["hbm_Bps"] == 3.35e12
+    assert "data sheet" in peak["source"]
+
+
+@pytest.mark.parametrize("kind", ["cpu", "NVIDIA A100-SXM4-80GB", ""])
+def test_peak_table_unknown_kind_raises(kind):
+    with pytest.raises(ValueError, match="no peak rates"):
+        bench.peak_for(kind)
 
 
 def test_flops_bytes_scale_with_problem():
-    fl1, by1, re1 = bench._solve_flops_bytes("pcg_fused", 14, 7, 50, 27)
-    fl2, by2, _ = bench._solve_flops_bytes("pcg_fused", 14, 7, 100, 27)
+    fl1, by1, re1 = bench.solve_flops_bytes("pcg", 14, 7, 50, 27)
+    fl2, by2, _ = bench.solve_flops_bytes("pcg", 14, 7, 100, 27)
     # Condense/PCG/recover all scale linearly in K.
     assert 1.8 < fl2 / fl1 < 2.2
     assert 1.8 < by2 / by1 < 2.2
-    # More iterations -> more flops, same fused residency traffic; the
-    # resident kind has no re-stream gap.
-    fl3, by3, _ = bench._solve_flops_bytes("pcg_fused", 14, 7, 50, 54)
-    assert fl3 > fl1 and by3 == by1
-    assert re1 == by1
+    # More iterations -> more flops and more re-streamed bytes, same floor.
+    fl3, by3, re3 = bench.solve_flops_bytes("pcg", 14, 7, 50, 54)
+    assert fl3 > fl1 and by3 == by1 and re3 > re1
+    assert re1 > by1
 
 
-def test_backend_kinds_ordering():
-    s, c, K, iters = 14, 7, 1024, 30
-    kinds = ["pcg_fused", "pcg_xl", "pcg_stream", "pcg_jax"]
-    out = [bench._solve_flops_bytes(k, s, c, K, iters) for k in kinds]
-    res = [o[2] for o in out]
-    # Zero-reuse residency hierarchy: fused (io only) < xl (one operator
-    # pass) < stream (re-streamed per iteration); jax re-reads plain-layout
-    # operators per iteration.
-    assert res[0] < res[1] < res[2]
-    assert res[0] < res[3]
-    # Floors: every kind's floor <= its restream model; xl == its floor
-    # (truly one pass); stream's floor equals xl's (same packed layout,
-    # ops cross HBM once each way).
-    for _, floor, restream in out:
-        assert floor <= restream
-    assert out[1][1] == out[1][2]
-    assert out[2][1] == out[1][1]
-    # Identical arithmetic across PCG backends.
-    fls = [o[0] for o in out]
-    assert len(set(fls)) == 1
+def test_direct_kinds():
+    """Exact solves read their operator a fixed number of times (floor ==
+    restream); cyclic reduction does more arithmetic than Thomas."""
+    cr = bench.solve_flops_bytes("direct_cr", 14, 7, 1024, 0)
+    th = bench.solve_flops_bytes("direct_thomas", 14, 7, 1024, 0)
+    assert cr[1] == cr[2] and th[1] == th[2]
+    assert cr[0] > th[0]
+    with pytest.raises(ValueError):
+        bench.solve_flops_bytes("fused", 14, 7, 50, 27)
 
 
 def test_annotate_roofline_fields_and_bounds():
-    spec = ProblemSpec(14, 7, 50)
-    # ~20 us solve on a ~0.7 us roofline -> latency-bound.
-    e = bench.annotate_roofline(
-        {"avg_ms_device": 0.020, "pcg_iters": 27}, spec, "pcg_fused")
+    e = bench.annotate_roofline({"ms_median": 0.5}, 14, 7, 50, "pcg", H100,
+                                iters=27)
     r = e["roofline"]
-    for f in ("flops_per_solve", "hbm_bytes_per_solve", "achieved_gflops",
-              "achieved_gbps", "roofline_ms", "pct_of_roofline", "bound"):
+    for f in ("flops", "bytes_floor", "bytes_restream", "achieved_gflops",
+              "achieved_gbps", "roofline_ms", "pct_of_roofline", "bound",
+              "peak_source"):
         assert f in r
-    assert r["bound"] == "latency"
     assert 0 < r["pct_of_roofline"] < 100
-
-    # A time close to the memory floor -> bandwidth-bound, pct <= 100.
-    spec_k = ProblemSpec(14, 7, 4096)
-    flops, hbm_f, _ = bench._solve_flops_bytes("pcg_jax", 14, 7, 4096, 31)
-    floor_ms = max(flops / bench._V5E["vpu_f32_flops"],
-                   hbm_f / bench._V5E["hbm_Bps"]) * 1e3
-    e2 = bench.annotate_roofline(
-        {"avg_ms_device": 2.0 * floor_ms, "pcg_iters": 31}, spec_k, "pcg_jax")
+    # A time of twice the bandwidth floor reads 50 %, bandwidth-bound.
+    fl, floor, _ = bench.solve_flops_bytes("pcg", 14, 7, 4096, 31)
+    peak = bench.peak_for(H100)
+    floor_ms = max(fl / peak["f32_flops"], floor / peak["hbm_Bps"]) * 1e3
+    e2 = bench.annotate_roofline({"ms_median": 2.0 * floor_ms}, 14, 7, 4096,
+                                 "pcg", H100, iters=31)
     assert e2["roofline"]["bound"] == "bandwidth"
-    assert e2["roofline"]["pct_of_roofline"] == 50.0
-
-    # Re-streaming kind faster than its zero-reuse model: pct stays
-    # against the floor (never silently >100%), and the reuse the kernel
-    # achieved is reported explicitly.
-    fl_s, floor_s, restream_s = bench._solve_flops_bytes(
-        "pcg_stream", 14, 7, 4096, 31)
-    assert floor_s < restream_s
-    restream_ms = max(fl_s / bench._V5E["vpu_f32_flops"],
-                      restream_s / bench._V5E["hbm_Bps"]) * 1e3
-    e3 = bench.annotate_roofline(
-        {"avg_ms_device": 0.5 * restream_ms, "pcg_iters": 31}, spec_k,
-        "pcg_stream")
-    r3 = e3["roofline"]
-    assert r3["pct_of_roofline"] <= 100.0
-    assert r3["reuse_factor"] == 2.0
-    assert r3["hbm_bytes_restream"] == restream_s
-    assert r3["restream_ms"] > r3["roofline_ms"]
-
-
-def test_direct_xl_kind():
-    """The long-horizon direct tier's model: one-pass resident (floor ==
-    restream), MORE arithmetic than the XLA cyclic reduction (lane-parallel
-    CR computes on all Kp lanes at every level, not a halving schedule) but
-    LESS HBM traffic than the XLA path's zero-reuse model."""
-    fl_xl, by_xl, re_xl = bench._solve_flops_bytes("direct_xl", 14, 7, 1024, 0)
-    fl_j, _, re_j = bench._solve_flops_bytes("direct_jax", 14, 7, 1024, 0)
-    assert by_xl == re_xl
-    assert fl_xl > fl_j
-    assert by_xl < re_j
+    assert e2["roofline"]["pct_of_roofline"] == pytest.approx(50.0)
+    # A batch multiplies the work, not the share.
+    e3 = bench.annotate_roofline({"ms_median": 512 * floor_ms}, 14, 7, 4096,
+                                 "pcg", H100, iters=31, batch=256)
+    assert e3["roofline"]["pct_of_roofline"] == pytest.approx(50.0)
 
 
 def test_annotate_roofline_skips_unmeasured():
-    spec = ProblemSpec(14, 7, 50)
-    e = bench.annotate_roofline({"avg_ms_device": 0.0}, spec, "pcg_fused")
+    e = bench.annotate_roofline({"ms_median": 0.0}, 14, 7, 50, "pcg", H100)
     assert "roofline" not in e
-
-
-def test_issued_pcg_model_uses_batch_packing():
-    """The issued-work ceiling for the fused PCG kernel must be computed at
-    the BATCH's real lane packing: per-solve issued work falls as problems
-    share a group's tiles (round-4 regression — the batch entries were
-    annotated with the B=1 packing and reported an impossible 111% of
-    ceiling)."""
-    one = bench._flops_issued_pcg_fused(14, 7, 50, 1, 27)
-    wide = bench._flops_issued_pcg_fused(14, 7, 50, 256, 27)
-    assert wide < one / 2
-    # And the ceiling is a genuine ceiling at the measured operating point:
-    # the probe-measured 0.086 us/solve-iteration at B=256 sits ABOVE the
-    # per-iteration issued time (tools/probe_pcg_iter.py: ~52%).
-    per_iter = (bench._flops_issued_pcg_fused(14, 7, 50, 256, 27)
-                - bench._flops_issued_pcg_fused(14, 7, 50, 256, 26))
-    assert per_iter / bench._V5E["vpu_f32_flops"] < 0.086e-6
+    with pytest.raises(ValueError, match="no peak rates"):
+        bench.annotate_roofline({"ms_median": 1.0}, 14, 7, 50, "pcg", "cpu")
 
 
 def test_jsonable_casts_numpy():
-    """Every dict bench prints/serializes must be json.dumps-able — NumPy
-    scalars leaking onto the stdout line would crash the driver's parser."""
-    import json as _json
-
+    """Every dict bench prints must be json.dumps-able — NumPy scalars
+    leaking onto a stdout line would break a JSON reader."""
     d = {"a": np.float64(7.0), "b": np.int32(3), "c": [np.float32(1.5)],
          "d": {"e": np.arange(2)}}
     out = bench._jsonable(d)
-    _json.dumps(out)
+    json.dumps(out)
     assert out["a"] == 7.0 and out["d"]["e"] == [0, 1]
+
+
+def test_rows_run_in_abba_order():
+    rows = [("a", 50, 1, "pcg", "triton"), ("b", 50, 1, "pcg", "jax"),
+            ("c", 50, 1, "direct", None)]
+    assert [r[0] for r in bench._ordered(rows)] == ["a", "b", "b", "a", "c"]
+
+
+def test_main_refuses_cpu(capsys):
+    """No GPU: nonzero exit, no row printed."""
+    assert bench.main(["--rows", "iiwa_b1_pcg", "--reps", "1"]) == 1
+    assert capsys.readouterr().out == ""

@@ -1,6 +1,6 @@
-"""Conditioning / robustness sweep (VERDICT r3 #7): drive genuinely
-degenerate systems through BOTH methods and every kernel tier, asserting the
-FAILURE FLAGS — not the solutions.
+"""Conditioning / robustness sweep: drive genuinely degenerate systems
+through BOTH methods and every backend, asserting the FAILURE FLAGS — not
+the solutions.
 
 The reference's only failure signal is silent max_iters exhaustion
 (gato_pcg.cuh:48-50); this repo claims to do better (converged flags,
@@ -9,13 +9,13 @@ under stress:
 
 * PCG stall: an ill-conditioned Schur complement at a tolerance f32 cannot
   reach within the iteration cap -> ``converged=False`` on every backend.
-* Exactly singular input (zero row/col in a Q block, rho=0): the XLA path
-  NaN-poisons through blocktri.block_inv (1/0); the kernel tiers detect the
-  clamped zero pivot (fused_solve._gj_inv_flag) and poison eta/lam, so
-  ``residual_converged`` reports False there too — WITHOUT disturbing
-  healthy problems sharing the same lane tile (the round-4 fix: the clamp
-  previously made the fused tiers solve a silently-regularized system and
-  report its self-consistent residual as converged).
+* Exactly singular input (zero row/col in a Q block, rho=0): condensation
+  NaN-poisons through blocktri.block_inv (1/0), so PCG runs to its cap and
+  ``residual_converged`` reports False for exact solves — WITHOUT disturbing
+  healthy problems sharing the same batch.
+
+The Triton kernel ('triton') and cyclic reduction ('cr') run as an H100
+would choose them, on the CPU (the ``as_h100`` fixture, conftest.py).
 """
 
 import numpy as np
@@ -30,6 +30,14 @@ from gato_tpu.testing import random_blocks
 
 SPEC = ProblemSpec(4, 2, 8)
 DIRECT = SolverOptions(rho=0.0, method="direct")
+
+
+def _use(backend, as_h100):
+    """pcg_backend argument for ``backend``; drops the H100 view for the
+    backends the CPU chooses itself ('jax', 'thomas')."""
+    if backend in ("jax", "thomas"):
+        as_h100()
+    return "triton" if backend == "triton" else None
 
 
 def _singular_blocks(seed=3, knot=2):
@@ -55,27 +63,24 @@ def _ill_conditioned_blocks(seed=3, lo=1e-6):
     return b._replace(Q=jnp.asarray(np.array(Qs, np.float32)))
 
 
-@pytest.mark.parametrize("backend", ["jax", "pallas", "fused"])
-def test_pcg_stall_reports_not_converged(backend):
+@pytest.mark.parametrize("backend", ["jax", "triton"])
+def test_pcg_stall_reports_not_converged(backend, as_h100):
     """cond ~1e6 + exit_tol=1e-12 + a 40-iteration cap: the loop exhausts
     max_iters and the flag must say so (the reference would exit silently
     with garbage; gato_pcg.cuh:48-50)."""
     blocks = _ill_conditioned_blocks()
     opts = SolverOptions(rho=1e-9, exit_tol=1e-12, max_iters=40)
-    res = solve(SPEC, blocks, opts, pcg_backend=backend)
+    res = solve(SPEC, blocks, opts, pcg_backend=_use(backend, as_h100))
     assert int(res.iters) == 40
     assert not bool(res.converged)
 
 
-@pytest.mark.parametrize("backend", ["jax", "fused"])
-def test_singular_pcg_runs_to_cap_not_converged(backend):
-    """Exactly-singular input through method='pcg' (ADVICE r4 #2): the
-    fused kernel's in-kernel condense used to clamp the zero pivot and
-    quietly solve the regularized system (converged=True at some small
-    iteration count) while the XLA path NaN-poisons and exhausts
-    max_iters.  The clamp flag now freezes the problem out of pcg_loop's
-    live mask with a poisoned eta, so BOTH paths report
-    iters == max_iters, converged=False."""
+@pytest.mark.parametrize("backend", ["jax", "triton"])
+def test_singular_pcg_runs_to_cap_not_converged(backend, as_h100):
+    """Exactly-singular input through method='pcg': the NaN-poisoned
+    condensation makes every PCG backend report iters == max_iters,
+    converged=False — never a quietly regularized solve."""
+    backend = _use(backend, as_h100)
     opts = SolverOptions(rho=0.0, exit_tol=1e-8, max_iters=25)
     res = solve(SPEC, _singular_blocks(), opts, pcg_backend=backend)
     assert int(res.iters) == 25
@@ -87,16 +92,15 @@ def test_singular_pcg_runs_to_cap_not_converged(backend):
     assert bool(ok.converged)
 
 
-def test_singular_in_pcg_batch_flags_only_that_problem():
-    """One singular problem inside a lane-packed fused PCG batch: only its
-    flag drops (to max_iters, unconverged), the healthy group members keep
-    EXACT iteration parity with the XLA path and matching solutions —
-    the finite 1e30 poison cannot NaN-contaminate the group through the
-    masked-matmul segment reductions (CLAUDE.md)."""
+def test_singular_in_pcg_batch_flags_only_that_problem(as_h100):
+    """One singular problem inside a Triton-kernel PCG batch: only its flag
+    drops (to max_iters, unconverged), the healthy members keep EXACT
+    iteration parity with the XLA path and matching solutions — each
+    problem runs in its own program, so the NaN cannot reach the others."""
     B, bad_idx = 5, 1
     bb = _batch_with_singular(B, bad_idx)
     opts = SolverOptions(rho=0.0, exit_tol=1e-8, max_iters=60)
-    rf = solve_batched(SPEC, bb, opts, pcg_backend="fused")
+    rf = solve_batched(SPEC, bb, opts, pcg_backend="triton")
     rj = solve_batched(SPEC, bb, opts, pcg_backend="jax")
     want = np.ones(B, bool)
     want[bad_idx] = False
@@ -111,16 +115,16 @@ def test_singular_in_pcg_batch_flags_only_that_problem():
     assert float(np.max(np.abs(lam_f - lam_j))) / scale < 1e-4
 
 
-@pytest.mark.parametrize("backend", ["jax", "fused"])
-def test_singular_direct_reports_not_converged(backend):
-    """Single-problem direct solve on a singular system: converged=False on
-    the XLA path (NaN) AND the fused CR kernel (zero-pivot flag)."""
-    res = solve(SPEC, _singular_blocks(), DIRECT, pcg_backend=backend)
+@pytest.mark.parametrize("backend", ["thomas", "cr"])
+def test_singular_direct_reports_not_converged(backend, as_h100):
+    """Single-problem direct solve on a singular system: converged=False by
+    block Thomas AND by cyclic reduction (the residual is NaN)."""
+    _use(backend, as_h100)
+    res = solve(SPEC, _singular_blocks(), DIRECT)
     assert not bool(res.converged)
     # Control: the same problem regularized is fine again.
     ok = solve(SPEC, _singular_blocks(), SolverOptions(rho=1e-2,
-                                                       method="direct"),
-               pcg_backend=backend)
+                                                       method="direct"))
     assert bool(ok.converged)
 
 
@@ -132,20 +136,14 @@ def _batch_with_singular(B, bad_idx, knot=2):
     return KKTBlocks(*(jnp.asarray(a) for a in arrs))
 
 
-@pytest.mark.parametrize("B,bad_idx,tier", [(16, 5, "thomas"), (5, 1, "cr")])
-def test_singular_in_batch_flags_only_that_problem(B, bad_idx, tier):
-    """One singular problem in a lane-packed batch: ONLY its flag drops,
-    and the healthy members' solutions still match the XLA path — on both
-    exact kernels (batch-in-lanes Thomas at B>=16, knots-in-lanes CR
-    below; thomas_batch.should_dispatch)."""
-    from gato_tpu.kernels import thomas_batch
-
-    assert thomas_batch.should_dispatch(
-        B, SPEC.knot_points, SPEC.state_size, SPEC.control_size
-    ) == (tier == "thomas")
+@pytest.mark.parametrize("B,bad_idx", [(16, 5), (5, 1)])
+def test_singular_in_batch_flags_only_that_problem(B, bad_idx, as_h100):
+    """One singular problem in an exact batch: ONLY its flag drops, and the
+    healthy members' cyclic-reduction solutions still match block Thomas."""
     bb = _batch_with_singular(B, bad_idx)
-    rf = solve_batched(SPEC, bb, DIRECT, pcg_backend="fused")
-    rj = solve_batched(SPEC, bb, DIRECT, pcg_backend="jax")
+    rf = solve_batched(SPEC, bb, DIRECT)   # cr, as on an H100
+    as_h100()
+    rj = solve_batched(SPEC, bb, DIRECT)   # thomas, the CPU's choice
     want = np.ones(B, bool)
     want[bad_idx] = False
     assert np.asarray(rf.converged).tolist() == want.tolist()
@@ -154,52 +152,3 @@ def test_singular_in_batch_flags_only_that_problem(B, bad_idx, tier):
     lam_j = np.asarray(rj.lam)[want]
     scale = float(np.max(np.abs(lam_j)))
     assert float(np.max(np.abs(lam_f - lam_j))) / scale < 1e-4
-
-
-@pytest.mark.parametrize("tier", ["fused_xl", "xl", "stream"])
-def test_singular_longk_pcg_reports_not_converged(tier):
-    """The long-horizon PCG tiers: a condense-stage clamped zero pivot is
-    flagged by the packed Qinv*Q identity check after the kernel (same
-    mechanism as the direct tier) and forced to the XLA oracle's outcome —
-    iters == max_iters, converged=False (ADVICE r4 #2)."""
-    from gato_tpu.kernels import longk
-
-    spec = ProblemSpec(3, 2, 24)
-    b = random_blocks(spec, seed=5)
-    Q = np.asarray(b.Q).copy()
-    Q[7, :, 0] = 0.0
-    Q[7, 0, :] = 0.0
-    arrs = [jnp.asarray(x) for x in b._replace(Q=jnp.asarray(Q))]
-    res, _, _ = longk.solve_longk(*arrs, rho=0.0, exit_tol=1e-8,
-                                  max_iters=30, chunk_lanes=128,
-                                  force_tier=tier, interpret=True)
-    assert not bool(res.converged)
-    assert int(res.iters) == 30
-    ok, _, _ = longk.solve_longk(*(jnp.asarray(x) for x in b), rho=1e-3,
-                                 exit_tol=1e-8, max_iters=100,
-                                 chunk_lanes=128, force_tier=tier,
-                                 interpret=True)
-    assert bool(ok.converged)
-
-
-@pytest.mark.parametrize("tier", ["xl", "xla"])
-def test_singular_longk_direct_reports_not_converged(tier):
-    """The long-horizon direct tiers (one-kernel CR / lane-packed XLA CR):
-    condense-stage singularity is caught by the packed Qinv*Q identity
-    check (longk._packed_singular_flag), in-solve zero pivots by the CR
-    kernels' flags."""
-    from gato_tpu.kernels import longk
-
-    spec = ProblemSpec(3, 2, 24)
-    b = random_blocks(spec, seed=5)
-    Q = np.asarray(b.Q).copy()
-    Q[7, :, 0] = 0.0
-    Q[7, 0, :] = 0.0
-    arrs = [jnp.asarray(x) for x in b._replace(Q=jnp.asarray(Q))]
-    res, _, _ = longk.solve_direct_longk(*arrs, rho=0.0, chunk_lanes=128,
-                                         force_tier=tier)
-    assert not bool(res.converged)
-    ok, _, _ = longk.solve_direct_longk(*(jnp.asarray(x) for x in b),
-                                        rho=1e-3, chunk_lanes=128,
-                                        force_tier=tier)
-    assert bool(ok.converged)

@@ -7,7 +7,6 @@ import numpy as np
 import pytest
 
 from gato_tpu import ProblemSpec
-from gato_tpu import diff as diff_mod
 from gato_tpu.diff import kkt_solve, kkt_solve_batched, _solve_kkt
 from gato_tpu.testing import random_blocks
 
@@ -142,8 +141,8 @@ def test_batched_matches_vmapped_single():
     """kkt_solve_batched (explicit batch axis) == vmap(kkt_solve): same
     primal and same gradients — the batched API only changes the dispatch,
     not the math.  (slow tier: batched custom-VJP traces are minutes-scale
-    on CPU; test_batched_fused_branch keeps the batched-diff path in the
-    fast tier.)"""
+    on CPU; test_vmap_and_jit_compose keeps the diff path in the fast
+    tier.)"""
     args = _batched_args()
     rho = args[-1]
     out_b = kkt_solve_batched(*args)
@@ -172,79 +171,29 @@ def test_batched_matches_vmapped_single():
 
 
 @pytest.mark.slow
-def test_batched_fused_branch(monkeypatch):
-    """The fused cyclic-reduction dispatch (TPU default) must produce the
-    same primal and gradients as the XLA direct path — forced on here
-    (the kernel runs in interpret mode off-TPU).
-
-    slow tier: the custom VJP never differentiates THROUGH the kernel (it
-    solves two extra systems via the same dispatch), so the fast tier's
-    test_grads_match_native_ad + test_primal_matches_direct plus the fused
-    oracle tests cover the same contract; the fused-branch AD cross-check
-    runs in the slow tier and on TPU via examples/advanced.py."""
+def test_batched_cr_branch(as_h100):
+    """Cyclic reduction (the H100's exact-solve choice) must produce the
+    same primal and gradients as block Thomas (the CPU's) through the
+    batched custom VJP.  slow tier: batched custom-VJP traces are
+    minutes-scale on CPU."""
     args = _batched_args(seed0=90)
-    ref_out = kkt_solve_batched(*args)
 
     def f(q, rho_):
         a = list(args)
         a[4], a[7] = q, rho_
         return _loss(*kkt_solve_batched(*a))
 
-    ref_g = jax.grad(f, argnums=(0, 1))(args[4], args[-1])
-
-    monkeypatch.setattr(diff_mod, "_use_fused_direct", lambda *a: True)
-    fused_out = kkt_solve_batched(*args)
-    fused_g = jax.grad(f, argnums=(0, 1))(args[4], args[-1])
-
-    for a, b in zip(fused_out, ref_out):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=1e-4, atol=1e-4)
-    scale = max(1.0, float(np.abs(np.asarray(ref_g[0])).max()))
-    np.testing.assert_allclose(np.asarray(fused_g[0]), np.asarray(ref_g[0]),
-                               rtol=2e-3, atol=2e-3 * scale)
-    np.testing.assert_allclose(float(fused_g[1]), float(ref_g[1]), rtol=2e-3,
-                               atol=2e-3 * max(1.0, abs(float(ref_g[1]))))
-
-
-@pytest.mark.slow
-def test_batched_thomas_branch(monkeypatch):
-    """At wide batches the batched differentiable surface routes its forward
-    AND adjoint solves to the batch-in-lanes Thomas kernel
-    (diff._solve_kkt_batched); primal and gradients must match the XLA
-    path.  Forced on here via _MIN_BATCH so a CPU-affordable batch takes
-    the wide branch (the kernel runs in interpret mode off-TPU); slow tier
-    for the same trace-cost reason as test_batched_fused_branch."""
-    from gato_tpu.kernels import thomas_batch
-
-    args = _batched_args(seed0=70)
+    cr_out = kkt_solve_batched(*args)
+    cr_g = jax.grad(f, argnums=(0, 1))(args[4], args[-1])
+    as_h100()
     ref_out = kkt_solve_batched(*args)
-
-    def f(q, rho_):
-        a = list(args)
-        a[4], a[7] = q, rho_
-        return _loss(*kkt_solve_batched(*a))
-
     ref_g = jax.grad(f, argnums=(0, 1))(args[4], args[-1])
 
-    monkeypatch.setattr(diff_mod, "_use_fused_direct", lambda *a: True)
-    monkeypatch.setattr(thomas_batch, "_MIN_BATCH", 1)
-    spy = []
-    orig = thomas_batch.solve_direct_thomas_batched
-
-    def wrapped(*a, **k):
-        spy.append(a[0].shape[0])
-        return orig(*a, **k)
-
-    monkeypatch.setattr(thomas_batch, "solve_direct_thomas_batched", wrapped)
-    th_out = kkt_solve_batched(*args)
-    th_g = jax.grad(f, argnums=(0, 1))(args[4], args[-1])
-    assert spy, "the wide branch must dispatch the Thomas kernel"
-
-    for a, b in zip(th_out, ref_out):
+    for a, b in zip(cr_out, ref_out):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                    rtol=1e-4, atol=1e-4)
     scale = max(1.0, float(np.abs(np.asarray(ref_g[0])).max()))
-    np.testing.assert_allclose(np.asarray(th_g[0]), np.asarray(ref_g[0]),
+    np.testing.assert_allclose(np.asarray(cr_g[0]), np.asarray(ref_g[0]),
                                rtol=2e-3, atol=2e-3 * scale)
-    np.testing.assert_allclose(float(th_g[1]), float(ref_g[1]), rtol=2e-3,
+    np.testing.assert_allclose(float(cr_g[1]), float(ref_g[1]), rtol=2e-3,
                                atol=2e-3 * max(1.0, abs(float(ref_g[1]))))

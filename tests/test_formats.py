@@ -134,3 +134,22 @@ def test_pack_C_still_skips_identity_block(use_native, monkeypatch):
     assert A[0, 0, 0] == 1.0 and A[0, 1, 1] == 1.0
     assert A[1, 0, 0] == 1.0 and A[1, 1, 1] == 1.0
     assert np.all(np.asarray(B) == 0.0)
+
+
+@pytest.mark.parametrize("spec,rho", [(ProblemSpec(2, 1, 5), 0.0),
+                                      (ProblemSpec(14, 7, 6), 1e-3),
+                                      (ProblemSpec(3, 5, 2), 1e-2)])
+def test_sparse_oracle_matches_dense(spec, rho):
+    """The sparse float64 oracle builds the same saddle system as the dense
+    one (entry for entry) and returns the same solution."""
+    from gato_tpu.testing import dense_oracle, kkt_sparse, sparse_oracle
+
+    blocks = random_blocks(spec, seed=7)
+    KKT, rhs = blocks_to_dense_kkt(spec, blocks, rho=rho)
+    KKT_s, rhs_s = kkt_sparse(spec, blocks, rho=rho)
+    np.testing.assert_array_equal(KKT_s.toarray(), KKT)
+    np.testing.assert_array_equal(rhs_s, rhs)
+    lam_d, dz_d = dense_oracle(spec, blocks, rho=rho)
+    lam_s, dz_s = sparse_oracle(spec, blocks, rho=rho)
+    np.testing.assert_allclose(lam_s, lam_d, rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(dz_s, dz_d, rtol=1e-9, atol=1e-9)

@@ -69,10 +69,10 @@ def test_sequence_per_step_rho():
                                    rtol=2e-3, atol=2e-3, err_msg=f"step {t}")
 
 
-def test_sequence_batched_matches_independent_sequences():
+def test_sequence_batched_matches_independent_sequences(as_h100):
     """solve_sequence_batched (T, B) == B independent solve_sequence runs:
     exact per-stream iteration parity and matching solutions, on both the
-    jax path and the lane-packed fused kernel path."""
+    jax path and the Triton kernel (interpreted)."""
     from gato_tpu.mpc import solve_sequence_batched
 
     spec = ProblemSpec(4, 2, 12)
@@ -88,7 +88,7 @@ def test_sequence_batched_matches_independent_sequences():
 
     refs = [solve_sequence(spec, streams[b], opts, pcg_backend="jax")
             for b in range(B)]
-    for backend in ("jax", "fused"):
+    for backend in ("jax", "triton"):
         res = solve_sequence_batched(spec, batched, opts, pcg_backend=backend)
         assert res.lam.shape == (T, B, 12, 4)
         for b in range(B):
@@ -168,6 +168,6 @@ def test_sequence_batched_rejects_unknown_backend():
     blocks = random_blocks(spec, seed=1)
     seq = KKTBlocks(*(np.broadcast_to(np.asarray(a), (2, 3) + np.asarray(a).shape).copy()
                       for a in blocks))
-    with pytest.raises(ValueError, match="supports pcg_backend"):
+    with pytest.raises(ValueError, match="unknown pcg_backend"):
         solve_sequence_batched(spec, seq, SolverOptions(rho=1e-2),
                                pcg_backend="nope")

@@ -1,9 +1,9 @@
 """Packed-input serving API (gato_tpu.packed) vs the standard surface.
 
-The packed path invokes the SAME kernels on the SAME packed arrays as
-solve/solve_batched — so outputs must be bit-identical, not merely close
-(interpret mode on CPU; the on-device analog rides bench.py's parity gate
-through the standard API the packed path shares kernels with)."""
+The packed path runs solve_batched's jitted core, with the backend dispatch
+picks, on the SAME staged arrays — so outputs must be bit-identical, not
+merely close.  The ``as_h100`` cases run the H100's choices (Triton kernel
+interpreted, cyclic reduction) on the CPU."""
 
 import dataclasses
 
@@ -15,7 +15,7 @@ import pytest
 from gato_tpu import ProblemSpec, SolverOptions
 from gato_tpu import packed as pk
 from gato_tpu.formats import KKTBlocks
-from gato_tpu.solver import solve, solve_batched
+from gato_tpu.solver import _solve_batched_core, solve_batched
 from gato_tpu.testing import random_blocks
 
 SPEC = ProblemSpec(3, 2, 10)
@@ -37,37 +37,38 @@ def _assert_same(res, ref):
                                   np.asarray(ref.converged))
 
 
+@pytest.mark.parametrize("device", ["cpu", "h100"])
 @pytest.mark.parametrize("method", ["pcg", "direct"])
-def test_packed_matches_fused_batched(method):
+def test_packed_matches_solve_batched(method, device, as_h100):
+    if device == "cpu":
+        as_h100()
     _, bb = _stack(SPEC, 5, seed0=11)
     opts = dataclasses.replace(OPTS, method=method)
-    ref = solve_batched(SPEC, bb, opts, pcg_backend="fused")
-    packed = pk.pack(SPEC, bb, method=method)
-    res = pk.solve_packed(packed, opts).unpack()
+    ref = solve_batched(SPEC, bb, opts)
+    res = pk.solve_packed(pk.pack(SPEC, bb), opts).unpack()
     _assert_same(res, ref)
     np.testing.assert_array_equal(np.asarray(res.eta), np.asarray(ref.eta))
 
 
-@pytest.mark.parametrize("method", ["pcg", pytest.param("direct", marks=pytest.mark.slow)])
+@pytest.mark.parametrize("method", ["pcg", "direct"])
 def test_packed_single_problem(method):
     problems, _ = _stack(SPEC, 1, seed0=40)
     opts = dataclasses.replace(OPTS, method=method)
-    ref = solve(SPEC, problems[0], opts, pcg_backend="fused")
-    packed = pk.pack(SPEC, problems[0], method=method)
-    res = pk.solve_packed(packed, opts).unpack()
+    ref = solve_batched(SPEC, KKTBlocks(*(np.asarray(a)[None]
+                                          for a in problems[0])), opts)
+    res = pk.solve_packed(pk.pack(SPEC, problems[0]), opts).unpack()
     assert res.lam.shape == (SPEC.knot_points, SPEC.state_size)  # unbatched
-    _assert_same(res, ref)
+    assert res.iters.shape == ()
+    _assert_same(res, type(ref)(*(x[0] for x in ref)))
 
 
 @pytest.mark.parametrize("precond", ["jacobi", "block_jacobi"])
 def test_packed_preconditioner_variants(precond):
-    """The non-default preconditioners flow through the packed surface to the
-    same in-kernel assembly the fused backend uses (bitwise)."""
     from gato_tpu.problem import Preconditioner
 
     _, bb = _stack(SPEC, 3, seed0=55)
     opts = dataclasses.replace(OPTS, preconditioner=Preconditioner(precond))
-    ref = solve_batched(SPEC, bb, opts, pcg_backend="fused")
+    ref = solve_batched(SPEC, bb, opts)
     res = pk.solve_packed(pk.pack(SPEC, bb), opts).unpack()
     _assert_same(res, ref)
 
@@ -81,11 +82,11 @@ def test_update_vectors_matches_full_repack():
                          q=bb2.q, r=bb2.r, c=bb2.c)
     full = pk.pack(SPEC, bb_mixed)
     refreshed = pk.update_vectors(packed, bb2.q, bb2.r, bb2.c)
-    for f in ("Qb", "Rb", "Ab", "Bb", "qb", "rb", "cb"):
+    for f in ("Q", "R", "A", "B", "q", "r", "c"):
         np.testing.assert_array_equal(np.asarray(getattr(full, f)),
                                       np.asarray(getattr(refreshed, f)))
     res = pk.solve_packed(refreshed, OPTS).unpack()
-    ref = solve_batched(SPEC, bb_mixed, OPTS, pcg_backend="fused")
+    ref = solve_batched(SPEC, bb_mixed, OPTS)
     _assert_same(res, ref)
 
 
@@ -93,7 +94,7 @@ def test_packed_warm_start_carry():
     _, bb = _stack(SPEC, 2, seed0=100)
     packed = pk.pack(SPEC, bb)
     first = pk.solve_packed(packed, OPTS)
-    # The packed carry re-solves the same system in <= 1 iteration ...
+    # The carry re-solves the same system in <= 1 iteration ...
     again = pk.solve_packed(packed, OPTS, lam0=first.lam_packed)
     assert int(np.max(np.asarray(again.iters))) <= 1
     # ... and is bit-identical to feeding the unpacked lambda back in.
@@ -103,74 +104,58 @@ def test_packed_warm_start_carry():
 
 
 def test_packed_is_jit_transparent():
-    """PackedKKT/PackedSolveResult are pytrees with static plans: a user jit
-    over solve_packed's core sees layout changes as cache keys, and the
-    second same-plan call hits the cache (retrace-free serving loop)."""
+    """PackedKKT/PackedSolveResult are pytrees with static plans, and a
+    second same-plan solve hits the jit cache (retrace-free serving loop)."""
     _, bb = _stack(SPEC, 2, seed0=130)
     packed = pk.pack(SPEC, bb)
     leaves, treedef = jax.tree_util.tree_flatten(packed)
     assert len(leaves) == 7
     rebuilt = jax.tree_util.tree_unflatten(treedef, leaves)
     assert rebuilt.plan == packed.plan
-    before = pk._solve_packed_pcg._cache_size()
-    pk.solve_packed(packed, OPTS)
-    first = pk._solve_packed_pcg._cache_size()
-    pk.solve_packed(packed, OPTS)
-    assert pk._solve_packed_pcg._cache_size() == first > before - 1
+    res = pk.solve_packed(packed, OPTS)
+    assert len(jax.tree_util.tree_leaves(res)) == 6
+    first = _solve_batched_core._cache_size()
+    pk.solve_packed(packed, dataclasses.replace(OPTS, rho=2e-3))
+    assert _solve_batched_core._cache_size() == first
 
 
-def test_cross_method_geometry_relabel():
-    """At shapes where the PCG and CR kernels plan the SAME packing geometry
-    (true for SPEC at this batch), one packed value serves both methods —
-    bitwise against a dedicated pack."""
-    from gato_tpu.kernels import direct_fused, fused_solve
-
-    n = 3
-    assert (fused_solve.plan_packing(n, *SPEC_KSC)
-            == direct_fused.plan_packing(n, *SPEC_KSC))
-    _, bb = _stack(SPEC, n, seed0=200)
-    packed_pcg = pk.pack(SPEC, bb, method="pcg")
-    opts_d = dataclasses.replace(OPTS, method="direct")
-    cross = pk.solve_packed(packed_pcg, opts_d).unpack()
-    dedicated = pk.solve_packed(pk.pack(SPEC, bb, method="direct"),
-                                opts_d).unpack()
-    _assert_same(cross, dedicated)
+def test_one_pack_serves_both_methods():
+    """The staged layout is method-independent: one pack, PCG and exact
+    solves chosen per call, each bitwise equal to solve_batched."""
+    _, bb = _stack(SPEC, 3, seed0=200)
+    packed = pk.pack(SPEC, bb)
+    for method in ("pcg", "direct"):
+        opts = dataclasses.replace(OPTS, method=method)
+        _assert_same(pk.solve_packed(packed, opts).unpack(),
+                     solve_batched(SPEC, bb, opts))
 
 
-def test_cross_method_geometry_mismatch_raises():
-    """Where the two kernels genuinely plan different geometries (IIWA at
-    batch 64: g=16/L=896 PCG vs g=9/L=512 direct), the relabel must refuse."""
-    from gato_tpu.kernels import direct_fused, fused_solve
-
-    iiwa = ProblemSpec(14, 7, 50)
-    assert (fused_solve.plan_packing(64, 50, 14, 7)
-            != direct_fused.plan_packing(64, 50, 14, 7))
-    _, bb = _stack(iiwa, 64, seed0=300)
-    packed = pk.pack(iiwa, bb, method="pcg")
-    with pytest.raises(ValueError, match="different packing geometry"):
-        pk.solve_packed(packed, dataclasses.replace(OPTS, method="direct"))
-
-
-SPEC_KSC = (SPEC.knot_points, SPEC.state_size, SPEC.control_size)
+@pytest.mark.parametrize("method", ["pcg", "direct"])
+def test_packed_float64(method):
+    """A float64 pack solves in float64, bitwise equal to solve_batched at
+    dtype float64; a pack casts to float32 unless asked otherwise."""
+    _, bb = _stack(SPEC, 3, seed0=210)
+    assert pk.pack(SPEC, bb).plan.dtype == "float32"
+    opts = dataclasses.replace(OPTS, method=method, dtype="float64")
+    with jax.enable_x64(True):
+        packed = pk.pack(SPEC, bb, dtype="float64")
+        res = pk.solve_packed(packed, opts).unpack()
+        assert res.lam.dtype == jnp.float64
+        _assert_same(res, solve_batched(SPEC, bb, opts))
 
 
 def test_packed_validation():
     problems, bb = _stack(SPEC, 2, seed0=160)
     packed = pk.pack(SPEC, bb)
-    with pytest.raises(ValueError, match="float32-only"):
+    with pytest.raises(ValueError, match="float32"):
         pk.solve_packed(packed, dataclasses.replace(OPTS, dtype="float64"))
-    with pytest.raises(ValueError, match="unknown method"):
-        pk.pack(SPEC, bb, method="thomas")
     with pytest.raises(ValueError, match="does not match"):
         pk.pack(ProblemSpec(4, 2, 10), bb)
     # Vector fields are validated too: a (K-1)-row c (easy slip — r IS
-    # (K-1, c)) must raise, not zero-pad into a silently-wrong system.
+    # (K-1, c)) must raise, not broadcast into a silently-wrong system.
     bad = bb._replace(c=np.asarray(bb.c)[:, :-1, :])
     with pytest.raises(ValueError, match="blocks.c shape"):
         pk.pack(SPEC, bad)
-    # (The update_vectors/pack f64 raises only fire under jax_enable_x64 —
-    # without it JAX itself truncates to f32 before the check, the
-    # documented global convention; see SolverOptions.dtype.)
     with pytest.raises(ValueError, match="q shape"):
         pk.update_vectors(packed, np.zeros((2, 4, 3), np.float32),
                           problems[0].r, problems[0].c)
@@ -184,119 +169,8 @@ def test_packed_validation():
             (SPEC.knot_points, SPEC.state_size + 1), np.float32))
 
 
-def test_pack_rejects_over_budget_horizon(monkeypatch):
-    from gato_tpu.kernels import fused_solve as fs
-
-    monkeypatch.setattr(fs, "_VMEM_BUDGET_BYTES", 10_000)
-    _, bb = _stack(SPEC, 1, seed0=0)
-    with pytest.raises(ValueError, match="VMEM budget"):
-        pk.pack(SPEC, bb)
-
-
-def test_packed_longk_tier(monkeypatch):
-    """Past the fused VMEM budget, pack() plans the long-horizon tier and
-    solve_packed runs the same packed seam as solve_longk_batched — bitwise.
-    Budgets are shrunk so the boundary sits at an interpret-affordable
-    shape (the real-K boundary runs through bench.py/verify on device)."""
-    from gato_tpu.kernels import fused_solve as fs
-    from gato_tpu.kernels import pcg_pallas as pp
-    from gato_tpu.kernels import longk
-
-    monkeypatch.setattr(fs, "_VMEM_BUDGET_BYTES", 10_000)
-    monkeypatch.setattr(pp, "_VMEM_BUDGET_BYTES", 10_000)
-    spec = ProblemSpec(3, 2, 48)
-    assert not fs.fits_vmem(48, 3, 2) and longk.should_dispatch(48, 3, 2)
-
-    n = 2
-    _, bb = _stack(spec, n, seed0=400)
-    opts = dataclasses.replace(OPTS, max_iters=200)
-    packed = pk.pack(spec, bb)
-    assert packed.plan.tier == "longk"
-    res = pk.solve_packed(packed, opts)
-
-    ref, dzx_ref, dzu_ref = longk.solve_longk_batched(
-        *bb, rho=opts.rho, exit_tol=opts.exit_tol, max_iters=opts.max_iters)
-    out = res.unpack()
-    np.testing.assert_array_equal(np.asarray(out.iters),
-                                  np.asarray(ref.iters))
-    np.testing.assert_array_equal(np.asarray(out.lam), np.asarray(ref.lam))
-    np.testing.assert_array_equal(np.asarray(out.dz_x), np.asarray(dzx_ref))
-    np.testing.assert_array_equal(np.asarray(out.dz_u), np.asarray(dzu_ref))
-
-    # Parity with the numerics oracle (exact iteration counts), and the
-    # packed warm-start carry works across the longk seam too.
-    jax_ref = solve_batched(spec, bb, opts, pcg_backend="jax")
-    np.testing.assert_array_equal(np.asarray(out.iters),
-                                  np.asarray(jax_ref.iters))
-    again = pk.solve_packed(packed, opts, lam0=res.lam_packed)
-    assert int(np.max(np.asarray(again.iters))) <= 1
-
-    # rhs-only refresh flows through the longk plan unchanged.
-    _, bb2 = _stack(spec, n, seed0=500)
-    refreshed = pk.update_vectors(packed, bb2.q, bb2.r, bb2.c)
-    r2 = pk.solve_packed(refreshed, opts).unpack()
-    ref2 = solve_batched(spec, bb._replace(q=bb2.q, r=bb2.r, c=bb2.c),
-                         opts, pcg_backend="jax")
-    np.testing.assert_array_equal(np.asarray(r2.iters),
-                                  np.asarray(ref2.iters))
-
-    # At this shape the direct method still plans its FUSED geometry
-    # (direct_fused's budget is not patched here), which differs from the
-    # longk plan: the cross-method relabel refuses.
-    with pytest.raises(ValueError, match="different packing geometry"):
-        pk.solve_packed(packed, dataclasses.replace(opts, method="direct"))
-
-
-@pytest.mark.slow
-def test_packed_direct_longk_tier(monkeypatch):
-    """Past the direct kernel's packing budget, pack(method='direct') plans
-    the long-horizon cyclic-reduction tier and solve_packed runs the same
-    packed seam as solve_direct_longk_batched — bitwise.  And because the
-    direct longk plan shares the PCG longk geometry (one problem per group),
-    one long-K pack serves BOTH methods via the relabel rule."""
-    from gato_tpu.kernels import direct_fused as df
-    from gato_tpu.kernels import fused_solve as fs
-    from gato_tpu.kernels import pcg_pallas as pp
-    from gato_tpu.kernels import longk
-
-    monkeypatch.setattr(df, "_VMEM_BUDGET_BYTES", 10_000)
-    monkeypatch.setattr(fs, "_VMEM_BUDGET_BYTES", 10_000)
-    monkeypatch.setattr(pp, "_VMEM_BUDGET_BYTES", 10_000)
-    spec = ProblemSpec(3, 2, 48)
-    assert not df.fits_vmem(48, 3, 2)
-    assert longk.should_dispatch_direct(48, 3, 2)
-
-    n = 2
-    _, bb = _stack(spec, n, seed0=600)
-    opts = dataclasses.replace(OPTS, method="direct")
-    packed = pk.pack(spec, bb, method="direct")
-    assert packed.plan.tier == "longk"
-    res = pk.solve_packed(packed, opts).unpack()
-
-    ref, dzx_ref, dzu_ref = longk.solve_direct_longk_batched(
-        *bb, rho=opts.rho)
-    np.testing.assert_array_equal(np.asarray(res.lam), np.asarray(ref.lam))
-    np.testing.assert_array_equal(np.asarray(res.dz_x), np.asarray(dzx_ref))
-    np.testing.assert_array_equal(np.asarray(res.dz_u), np.asarray(dzu_ref))
-    assert [int(i) for i in res.iters] == [0] * n
-    assert bool(np.all(res.converged))
-
-    # Exactness vs the XLA direct path.
-    jref = solve_batched(spec, bb, opts, pcg_backend="jax")
-    scale = float(np.max(np.abs(np.asarray(jref.lam))))
-    err = float(np.max(np.abs(np.asarray(res.lam)
-                              - np.asarray(jref.lam)))) / scale
-    assert err < 5e-4, err
-
-    # One pack serves both methods at long K: relabel the PCG pack.
-    pcg_pack = pk.pack(spec, bb, method="pcg")
-    assert pcg_pack.plan.tier == "longk"
-    res2 = pk.solve_packed(pcg_pack, opts).unpack()
-    np.testing.assert_array_equal(np.asarray(res2.lam), np.asarray(res.lam))
-
-
 # ---------------------------------------------------------------------------
-# Sequence farms (pack_sequence / solve_packed_sequence — VERDICT r4 #4)
+# Sequence farms (pack_sequence / solve_packed_sequence)
 # ---------------------------------------------------------------------------
 
 
@@ -310,21 +184,21 @@ def _seq_stack(spec, T, B, seed0=0):
 
 
 def test_packed_sequence_matches_mpc():
-    """Same kernels, same packed arrays -> bit-identical to the public
+    """Same core, same staged arrays -> bit-identical to the public
     mpc.solve_sequence_batched farm."""
     from gato_tpu.mpc import solve_sequence_batched
 
     seq = _seq_stack(SPEC, T=4, B=3, seed0=20)
-    ref = solve_sequence_batched(SPEC, seq, OPTS, pcg_backend="fused")
+    ref = solve_sequence_batched(SPEC, seq, OPTS)
     ps = pk.pack_sequence(SPEC, seq)
     res = pk.solve_packed_sequence(ps, OPTS).unpack()
     _assert_same(res, ref)
 
 
 def test_packed_sequence_window_carry():
-    """A long stream served as two packed windows with the packed lambda
-    carry must reproduce the single-window run exactly — the streaming
-    serving loop's steady state (no unpack->repack between windows)."""
+    """A long stream served as two packed windows with the lambda carry
+    must reproduce the single-window run exactly — the streaming serving
+    loop's steady state."""
     seq = _seq_stack(SPEC, T=6, B=3, seed0=21)
     full = pk.solve_packed_sequence(pk.pack_sequence(SPEC, seq), OPTS)
 
@@ -344,8 +218,6 @@ def test_packed_sequence_window_carry():
 
 def test_pack_sequence_validation():
     seq = _seq_stack(SPEC, T=2, B=2, seed0=22)
-    with pytest.raises(ValueError, match="warm-started PCG farm"):
-        pk.pack_sequence(SPEC, seq, method="direct")
     with pytest.raises(ValueError, match="leading \\(T, B\\) axes"):
         pk.pack_sequence(SPEC, KKTBlocks(*(a[0] for a in seq)))
     with pytest.raises(ValueError, match="method='direct'"):

@@ -137,66 +137,57 @@ def test_float64_dtype():
                                    rtol=1e-10, atol=1e-12)
 
 
-def test_f64_auto_selects_jax_backend(monkeypatch):
-    """Auto-selection must route non-f32 compute to the pure-XLA path: the
-    Mosaic kernels are f32-only, and on TPU the auto default would otherwise
-    hand f64 arrays to a kernel that cannot lower them.  The check lives in
-    default_pcg_backend so every auto-selector (solve, solve_batched, and
-    the MPC sequence entry points) inherits it."""
-    import jax as jax_mod
+def test_f64_auto_selects_jax_backend(as_h100):
+    """Auto-selection routes non-f32 compute to the pure-XLA path: the
+    Triton kernel is float32, and on an H100 the auto default would
+    otherwise hand f64 arrays to it.  The check lives in
+    dispatch.choose_backend so every auto-selector inherits it."""
+    from gato_tpu.dispatch import choose_backend
 
-    from gato_tpu.solver import default_pcg_backend
-
-    class _FakeTPU:
-        platform = "tpu"
-
-    monkeypatch.setattr(jax_mod, "devices", lambda *a: [_FakeTPU()])
-    assert default_pcg_backend(dtype="float64") == "jax"
-    assert default_pcg_backend(dtype="float32") == "fused"
-    assert default_pcg_backend(method="direct", dtype="float64") == "jax"
+    kw = dict(K=50)
+    assert choose_backend("pcg", None, dtype="float64", **kw) == "jax"
+    assert choose_backend("pcg", None, dtype="float32", **kw) == "triton"
+    assert choose_backend("direct", None, dtype="float64", **kw) == "cr"
 
 
 def test_auto_selectors_forward_dtype(monkeypatch):
     """Every auto-selection call site must pass options.dtype through to
-    default_pcg_backend — dropping the kwarg anywhere would silently hand
-    f64 arrays to the f32-only kernels on TPU while all CPU tests keep
-    passing (CPU auto-selects 'jax' regardless)."""
+    dispatch.choose_backend — dropping it anywhere would silently hand f64
+    arrays to the float32 kernel on a GPU while all CPU tests keep passing
+    (the CPU auto-selects 'jax' regardless)."""
     import jax
     import jax.numpy as jnp
 
-    from gato_tpu import solver as solver_mod
-    from gato_tpu.solver import _resolve_backend
-
-    seen = []
-
-    def recorder(*a, **k):
-        seen.append(k.get("dtype"))
-        return "jax"
-
-    monkeypatch.setattr(solver_mod, "default_pcg_backend", recorder)
-    opts = SolverOptions(dtype="float64")
-    _resolve_backend(None, opts, batched=False)
-    assert seen[-1] == "float64"
-
-    # The MPC entry points import the symbol from solver at module load, so
-    # patch their reference too.
-    from gato_tpu import mpc as mpc_mod
+    from gato_tpu import dispatch, mpc as mpc_mod
     from gato_tpu.formats import KKTBlocks
 
-    monkeypatch.setattr(mpc_mod, "default_pcg_backend", recorder)
+    seen = []
+    real = dispatch.choose_backend
+
+    def recorder(method, requested, **k):
+        seen.append(jnp.dtype(k["dtype"]).name)
+        return real(method, requested, **k)
+
+    monkeypatch.setattr(dispatch, "choose_backend", recorder)
+    from gato_tpu import solver as solver_mod
+
+    monkeypatch.setattr(solver_mod, "choose_backend", recorder)
     spec = ProblemSpec(2, 1, 4)
     blocks = random_blocks(spec, seed=0)
+    opts = SolverOptions(dtype="float64", rho=1e-2)
     with jax.enable_x64(True):
+        solve(spec, blocks, opts)
+        assert seen[-1] == "float64"
+        solve_batched(spec, KKTBlocks(*(np.asarray(a)[None]
+                                        for a in blocks)), opts)
+        assert seen[-1] == "float64"
         seq = KKTBlocks(*(jnp.broadcast_to(jnp.asarray(np.asarray(a)),
                                            (2,) + np.asarray(a).shape)
                           for a in blocks))
-        mpc_mod.solve_sequence(spec, seq, SolverOptions(dtype="float64",
-                                                        rho=1e-2))
+        mpc_mod.solve_sequence(spec, seq, opts)
         assert seen[-1] == "float64"
         farm = KKTBlocks(*(jnp.broadcast_to(jnp.asarray(np.asarray(a)),
                                             (2, 3) + np.asarray(a).shape)
                            for a in blocks))
-        mpc_mod.solve_sequence_batched(spec, farm,
-                                       SolverOptions(dtype="float64",
-                                                     rho=1e-2))
+        mpc_mod.solve_sequence_batched(spec, farm, opts)
         assert seen[-1] == "float64"

@@ -8,11 +8,7 @@ import jax.numpy as jnp
 
 from gato_tpu.problem import ProblemSpec, SolverOptions
 from gato_tpu.testing import random_blocks
-from gato_tpu.timing import chain_time, measure_rtt_ms, perturb, time_solve
-
-
-def test_measure_rtt_runs():
-    assert measure_rtt_ms(reps=2) > 0
+from gato_tpu.timing import chain_time, perturb, time_solve
 
 
 def test_perturb_changes_q_and_Q():
@@ -63,7 +59,7 @@ def test_chain_time_doubles_on_noise():
 def test_best_cluster_rejects_transient():
     from gato_tpu.timing import _best_cluster
 
-    # A one-off 40x transport stall must not pollute the reported value.
+    # A one-off 40x stall must not pollute the reported value.
     ms, spread = _best_cluster([0.39, 15.6, 0.41], 2)
     assert abs(ms - 0.40) < 0.02 and spread < 0.03
 
@@ -83,7 +79,7 @@ def _scripted_chain_time(monkeypatch, timed_values, **kw):
 
 
 def test_chain_time_drops_corrupted_differences(monkeypatch):
-    """A transport stall can make a T-vs-2T difference non-positive; such an
+    """A stall can make a T-vs-2T difference non-positive; such an
     estimate must be DROPPED and re-measured — floor-clamping it would let
     two stalls form a fake zero-spread 'tightest cluster' of identical floor
     values (the silent-corruption bug this pins)."""
